@@ -1,0 +1,8 @@
+"""PyTorch/CUDA port of ``doubly_contrastive_semseg_tpu`` for NVIDIA Hopper.
+
+The JAX package beside it is the reference. This package imports torch,
+never JAX; its CUDA kernels live in ``csrc/`` and are built at first use.
+"""
+
+from .config import Config
+from .models import DCSSModel, build_model, make_serving_fn

@@ -1,0 +1,4 @@
+from .blocks import BNReluConv, PreActConv, UpsampleBlend
+from .resnet_pyramid import PyramidResNet, resnet18_pyramid, resnet34_pyramid
+from .serving import make_serving_fn
+from .weathernet import WeatherNet, WeatherClassifier, ProjectionHead, DCSSModel, build_model

@@ -1,0 +1,144 @@
+"""Shared model blocks: the eval path of the JAX package's ``models/blocks.py``.
+
+Tensors inside the model are NCHW-shaped in ``torch.channels_last`` memory,
+so their NHWC views (the public layout, as in the JAX package) cost no copy.
+
+Dtypes: parameters stay float32. Activations run in the dtype the pyramid
+hands the trunk (``compute_dtype``: bf16 on the card). Each conv casts its
+weight to the activation dtype at the call; each eval BatchNorm folds its
+running statistics into a float32 scale/shift, cast to the activation dtype
+for the multiply-add.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.interpolate import resize_bilinear
+from ..ops.seghead import fold_bn
+
+# torch BatchNorm momentum of the reference (network/utils.py:36)
+TORCH_BN_MOMENTUM = 0.1
+
+
+class TorchBatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1). In eval it applies the
+    folded float32 scale/shift in the activation dtype; in training it is
+    ``nn.BatchNorm2d`` itself."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-5, momentum=TORCH_BN_MOMENTUM)
+
+    def folded(self):
+        """(scale, shift), float32: eval BN is x·scale + shift."""
+        return fold_bn(self.weight, self.bias, self.running_mean,
+                       self.running_var, self.eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return super().forward(x)
+        scale, shift = self.folded()
+        return torch.addcmul(shift.to(x.dtype)[:, None, None], x,
+                             scale.to(x.dtype)[:, None, None])
+
+
+def batch_norm(features: int) -> TorchBatchNorm:
+    return TorchBatchNorm(features)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose float32 parameters are cast to the input's dtype
+    at the call."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+def conv_kxk(in_features: int, features: int, k: int = 3, stride: int = 1,
+             bias: bool = False) -> Conv2d:
+    """k×k conv with torch ``padding=k//2``."""
+    return Conv2d(in_features, features, k, stride=stride, padding=k // 2,
+                  bias=bias)
+
+
+def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """torch ``MaxPool2d(kernel=3, stride=2, padding=1)``."""
+    return F.max_pool2d(x, 3, stride=2, padding=1)
+
+
+class BNReluConv(nn.Module):
+    """BN → ReLU → conv, SwiftNet's pre-activation unit (reference
+    ``network/utils.py:35-49``); the segmentation head with ``k=1,
+    bias=True``. Modules ``norm`` and ``conv`` carry the reference names."""
+
+    def __init__(self, in_features: int, features: int, k: int = 3,
+                 bias: bool = False):
+        super().__init__()
+        self.norm = batch_norm(in_features)
+        self.conv = conv_kxk(in_features, features, k=k, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(torch.relu(self.norm(x)))
+
+
+class PreActConv(BNReluConv):
+    """The decoder's 3×3 BN → ReLU → conv (same names as ``BNReluConv``)."""
+
+    def __init__(self, features: int, k: int = 3):
+        super().__init__(features, features, k=k)
+
+
+class UpsampleBlend(nn.Module):
+    """Bilinear-upsample to the skip's size, add the skip, 3×3 pre-activation
+    conv (reference ``_UpsampleBlend``, ``network/utils.py:79-102``; the JAX
+    package's k=3, use_bn form).
+
+    ``fuse_inference`` selects the JAX package's fused Pallas blend kernel
+    (``ops/blend_pallas.py``), which the port has not written yet: on a CUDA
+    tensor it raises (ROADMAP.md queues the kernel); on the CPU the plain
+    path runs, as in the JAX package."""
+
+    def __init__(self, features: int = 128, fuse_inference: bool = False):
+        super().__init__()
+        self.fuse_inference = fuse_inference
+        self.blend_conv = PreActConv(features, k=3)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        if self.fuse_inference and x.is_cuda:
+            raise NotImplementedError(
+                "UpsampleBlend(fuse_inference=True): the fused blend kernel "
+                "is not ported yet (see ROADMAP.md)")
+        hh, ww = skip.shape[-2:]
+        x = resize_bilinear(x.permute(0, 2, 3, 1), (hh, ww)).permute(0, 3, 1, 2)
+        return self.blend_conv(x + skip)
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Initialises parameters as the JAX package does, from ``generator``:
+    convs truncated-normal fan-out with gain 2 (flax ``variance_scaling(2,
+    "fan_out", "truncated_normal")``), dense layers lecun-normal with zero
+    bias, BN scale 1 and bias 0, running mean 0 and var 1."""
+    # std of a unit normal truncated to ±2, which variance_scaling divides out
+    trunc_std = 0.87962566103423978
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+            std = math.sqrt(2.0 / fan_out) / trunc_std
+            with torch.no_grad():
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+        elif isinstance(m, nn.Linear):
+            std = math.sqrt(1.0 / m.in_features) / trunc_std
+            with torch.no_grad():
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()

@@ -1,0 +1,118 @@
+"""SwiftNet pyramid ResNet-18/34 — port of the JAX package's
+``models/resnet_pyramid.py`` (reference ``resnet_pyramid.py:55-417``).
+
+A 3-level bicubic input pyramid feeds one shared ResNet trunk. The stem BN
+is per level (``bn1_0/1/2``); every other parameter is shared. Each stage's
+output passes a 1×1 bottleneck to 128 channels and is summed into a
+resolution-indexed skip list, and 5 ``UpsampleBlend`` steps decode from the
+coarsest skip sum up to 1/4 input resolution.
+
+Module names follow the reference's torch ``state_dict`` (``conv1`` as a
+dense 7×7 kernel, ``layer{s}.{b}.downsample.{0,1}``,
+``upsample_bottlenecks{j}``, ``upsample_blends{i}``), so
+``utils/convert.py`` and the JAX package's torch converter both apply.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import torch
+import torch.nn as nn
+
+from ..ops.input_pipeline import build_pyramid
+from ..ops.stem import fused_stem_pool
+from .blocks import Conv2d, UpsampleBlend, batch_norm, conv_kxk, max_pool_3x3_s2
+
+NUM_FEATURES = 128   # decoder width
+PYRAMID_LEVELS = 3
+
+
+class BasicBlock(nn.Module):
+    """conv3×3(s) → BN → ReLU → conv3×3 → BN, projection shortcut on a
+    stride or width change, add, ReLU (reference ``resnet_pyramid.py:55-89``)."""
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = conv_kxk(in_planes, planes, 3, stride)
+        self.bn1 = batch_norm(planes)
+        self.conv2 = conv_kxk(planes, planes, 3, 1)
+        self.bn2 = batch_norm(planes)
+        self.downsample = None
+        if stride != 1 or in_planes != planes:
+            self.downsample = nn.Sequential(
+                Conv2d(in_planes, planes, 1, stride=stride, bias=False),
+                batch_norm(planes))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return torch.relu(out + residual)
+
+
+class PyramidResNet(nn.Module):
+    """Shared-trunk pyramid ResNet. ``forward(image)`` takes (B, H, W, 3)
+    pixels and returns (decoded 128-channel features at 1/4 resolution as a
+    channels_last NCHW tensor, {"skips_0": the coarsest skip})."""
+
+    def __init__(self, layers: Sequence[int] = (2, 2, 2, 2),
+                 fuse_stem: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fuse_stem = fuse_stem
+        self.dtype = dtype
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        for i in range(PYRAMID_LEVELS):
+            setattr(self, f"bn1_{i}", batch_norm(64))
+        in_planes = 64
+        for si, (planes, n_blocks) in enumerate(zip((64, 128, 256, 512), layers)):
+            blocks = []
+            for bi in range(n_blocks):
+                stride = 2 if (si > 0 and bi == 0) else 1
+                blocks.append(BasicBlock(in_planes, planes, stride))
+                in_planes = planes
+            setattr(self, f"layer{si + 1}", nn.Sequential(*blocks))
+            setattr(self, f"upsample_bottlenecks{si + 1}",
+                    conv_kxk(planes, NUM_FEATURES, k=1))
+        # output stride 4: PYRAMID_LEVELS + 3 skip resolutions
+        self.num_skip_levels = PYRAMID_LEVELS + 3
+        for i in range(1, self.num_skip_levels):
+            setattr(self, f"upsample_blends{i}", UpsampleBlend(NUM_FEATURES))
+
+    def _stem(self, level: torch.Tensor, idx: int) -> torch.Tensor:
+        bn = getattr(self, f"bn1_{idx}")
+        if self.fuse_stem and not self.training:
+            scale, shift = bn.folded()
+            x = fused_stem_pool(level, self.conv1.weight, scale, shift)
+            return x.permute(0, 3, 1, 2)
+        x = self.conv1(level.permute(0, 3, 1, 2))
+        return max_pool_3x3_s2(torch.relu(bn(x)))
+
+    def forward(self, image: torch.Tensor):
+        pyramid = build_pyramid(image, PYRAMID_LEVELS, self.dtype)
+        skips: Dict[int, list] = {lvl: [] for lvl in range(self.num_skip_levels)}
+        for idx, level in enumerate(pyramid):
+            x = self._stem(level, idx)
+            for j in range(4):
+                x = getattr(self, f"layer{j + 1}")(x)
+                skips[idx + j].append(getattr(self, f"upsample_bottlenecks{j + 1}")(x))
+
+        # reversed: the coarsest level first (reference resnet_pyramid.py:361)
+        skips_r = [skips[lvl] for lvl in reversed(range(self.num_skip_levels))]
+        x = skips_r[0][0]
+        additional = {"skips_0": x}
+        for i in range(1, self.num_skip_levels):
+            skip_sum = skips_r[i][0]
+            for s in skips_r[i][1:]:
+                skip_sum = skip_sum + s
+            x = getattr(self, f"upsample_blends{i}")(x, skip_sum)
+        return x, additional
+
+
+def resnet18_pyramid(**kw) -> PyramidResNet:
+    """SwiftNet-RN18 (reference ``resnet_pyramid.py:397-405``)."""
+    return PyramidResNet(layers=(2, 2, 2, 2), **kw)
+
+
+def resnet34_pyramid(**kw) -> PyramidResNet:
+    return PyramidResNet(layers=(3, 4, 6, 3), **kw)

@@ -1,0 +1,128 @@
+"""WeatherNet, the weather classifier, the SupCon projection head and the
+model factory — port of the JAX package's ``models/weathernet.py``
+(reference ``network/weathernet.py:14-105``, ``network/classifier.py``).
+
+Outputs are dicts with the JAX package's keys, in its NHWC layout.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn as nn
+
+from ..ops.interpolate import resize_bilinear
+from .blocks import BNReluConv, init_weights
+from .resnet_pyramid import resnet18_pyramid, resnet34_pyramid
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+class WeatherClassifier(nn.Module):
+    """Global average pool → Linear(128 → weather_num), a monitoring head
+    (reference ``network/classifier.py:6-32``). Takes NHWC features."""
+
+    def __init__(self, in_features: int = 128, weather_num: int = 4):
+        super().__init__()
+        self.fc = nn.Linear(in_features, weather_num)
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        x = feats.mean(dim=(1, 2))
+        return nn.functional.linear(x, self.fc.weight.to(x.dtype),
+                                    self.fc.bias.to(x.dtype)).float()
+
+
+class ProjectionHead(nn.Module):
+    """Linear → ReLU → Linear projection for image-level contrast (reference
+    ``utils/loss.py:104-109``). The training slice attaches it to the model;
+    the eval path does not use it."""
+
+    def __init__(self, in_features: int = 128, feat_dim: int = 128):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, in_features)
+        self.fc2 = nn.Linear(in_features, feat_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(nn.functional.linear(x, self.fc1.weight.to(x.dtype),
+                                            self.fc1.bias.to(x.dtype)))
+        return nn.functional.linear(x, self.fc2.weight.to(x.dtype),
+                                    self.fc2.bias.to(x.dtype)).float()
+
+
+class WeatherNet(nn.Module):
+    """Pyramid backbone → 1×1 BNReluConv seg head → bilinear upsample to the
+    input size (reference ``network/weathernet.py:60-98``)."""
+
+    def __init__(self, backbone: str = "resnet18", num_classes: int = 19,
+                 fuse_stem: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if backbone == "resnet18":
+            factory = resnet18_pyramid
+        elif backbone == "resnet34":
+            factory = resnet34_pyramid
+        else:
+            raise NotImplementedError(
+                f"backbone {backbone!r} is not ported yet (see ROADMAP.md)")
+        self.feature_extractor = factory(fuse_stem=fuse_stem, dtype=dtype)
+        self.segmentation = BNReluConv(128, num_classes, k=1, bias=True)
+
+    def forward(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
+        feat, additional = self.feature_extractor(image)
+        seg_beforeup = _nhwc(self.segmentation(feat)).float()
+        return {
+            "seg": resize_bilinear(seg_beforeup, tuple(image.shape[1:3])),
+            "seg_beforeup": seg_beforeup,
+            "fine_feat": _nhwc(feat),
+            "fine_feat0": _nhwc(feat),
+            "skips_0": _nhwc(additional["skips_0"]),
+        }
+
+
+class DCSSModel(nn.Module):
+    """WeatherNet plus the weather classifier, with the JAX ``DCSSModel``'s
+    eval outputs. ``image`` is (B, H, W, 3) pixels; parameters are float32
+    and activations run in ``dtype``."""
+
+    def __init__(self, backbone: str = "resnet18", num_classes: int = 19,
+                 weather_num: int = 4, fuse_stem: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.net = WeatherNet(backbone, num_classes, fuse_stem, dtype)
+        self.weather_clf = WeatherClassifier(128, weather_num)
+
+    def forward(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = self.net(image)
+        out["weather_logits"] = self.weather_clf(out["fine_feat0"])
+        return out
+
+    def forward_features(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The forward up to the decoder features and the weather logits,
+        without the seg head and its full-resolution logits (the serving
+        path reads the features; jit drops the rest as dead code in JAX)."""
+        feat, _ = self.net.feature_extractor(image)
+        fine_feat = _nhwc(feat)
+        return {"fine_feat": fine_feat,
+                "weather_logits": self.weather_clf(fine_feat)}
+
+
+def build_model(cfg, device="cuda", seed: int = 0) -> DCSSModel:
+    """Model factory (reference ``utils/init_trainer.py:97-111``) for the
+    ported backbones, with weights drawn from ``torch.Generator`` seeded by
+    ``seed``. Runs on the card unless ``device`` asks for the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_model: CUDA is not available; pass "
+                           "device='cpu' to run on the CPU")
+    if cfg.model not in ("resnet18", "resnet34"):
+        raise NotImplementedError(
+            f"model {cfg.model!r} is not ported yet (see ROADMAP.md)")
+    model = DCSSModel(backbone=cfg.model, num_classes=cfg.num_classes,
+                      weather_num=cfg.weather_num, fuse_stem=cfg.fuse_stem,
+                      dtype=_DTYPES[cfg.compute_dtype])
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(device=device, memory_format=torch.channels_last).eval()

@@ -1,0 +1,117 @@
+"""The port's DCSSModel eval forward vs the JAX DCSSModel on the same weights.
+
+JAX variables (batch stats and BN affine randomised from a numpy seed, so the
+BN folds are exercised) go through ``from_jax_variables`` into the port; the
+port's ``net.*`` weights then go back through the JAX package's own torch
+converter to the same JAX tree, which also proves the port keeps the
+reference's state_dict names.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from doubly_contrastive_semseg_tpu.models import DCSSModel as JaxDCSSModel  # noqa: E402
+from doubly_contrastive_semseg_tpu.models.weathernet import (  # noqa: E402
+    ProjectionHead as JaxProjectionHead)
+from doubly_contrastive_semseg_tpu.utils.torch_convert import (  # noqa: E402
+    convert_reference_weathernet, jax_to_py)
+from doubly_contrastive_semseg_tpu_torch import Config, build_model  # noqa: E402
+from doubly_contrastive_semseg_tpu_torch.models import ProjectionHead  # noqa: E402
+from doubly_contrastive_semseg_tpu_torch.ops import fused_stem_pool  # noqa: E402
+from doubly_contrastive_semseg_tpu_torch.utils import from_jax_variables  # noqa: E402
+
+# divisible by 128, so all 6 skip levels of the pyramid decoder run
+SHAPE = (1, 128, 256, 3)
+
+
+def randomize_bn(params, stats, rng):
+    """Random BN scale/bias and running mean/var over every BN of the tree
+    (every node with a running mean). Scales below 1 keep the outputs of
+    order 1, so the absolute tolerance means what it says."""
+    for key, node in stats.items():
+        if "mean" in node:
+            c = node["mean"].shape
+            node["mean"] = rng.normal(0.0, 0.1, c).astype(np.float32)
+            node["var"] = rng.uniform(1.0, 2.0, c).astype(np.float32)
+            params[key]["scale"] = rng.uniform(0.5, 0.8, c).astype(np.float32)
+            params[key]["bias"] = rng.normal(0.0, 0.1, c).astype(np.float32)
+        else:
+            randomize_bn(params[key], node, rng)
+
+
+def jax_variables(rng, shape=SHAPE):
+    """Initialised f32 JAX DCSSModel and its numpy variables."""
+    model = JaxDCSSModel(backbone="resnet18", num_classes=19, weather_num=4,
+                         dtype=jnp.float32)
+    v = model.init(jax.random.PRNGKey(0), jnp.zeros(shape), train=False)
+    params, stats = jax_to_py(v["params"]), jax_to_py(v["batch_stats"])
+    randomize_bn(params, stats, rng)
+    return model, params, stats
+
+
+def port_model(params, stats, **cfg):
+    model = build_model(Config(compute_dtype="float32", **cfg), device="cpu")
+    model.load_state_dict(from_jax_variables(params, stats), strict=True)
+    return model
+
+
+@pytest.mark.parametrize("fuse_stem", [True, False])
+def test_eval_forward_matches_jax(rng, fuse_stem):
+    jmodel, params, stats = jax_variables(rng)
+    x = rng.uniform(0, 255, SHAPE).astype(np.float32)
+    want = jmodel.apply({"params": params, "batch_stats": stats},
+                        jnp.asarray(x), train=False)
+    model = port_model(params, stats, fuse_stem=fuse_stem)
+    before = fused_stem_pool.launches
+    with torch.no_grad():
+        got = model(torch.from_numpy(x))
+    assert fused_stem_pool.launches == before  # CPU: plain version only
+    for key in ("seg_beforeup", "fine_feat", "seg", "weather_logits"):
+        assert tuple(got[key].shape) == tuple(want[key].shape), key
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=1e-4, atol=1e-4, err_msg=key)
+
+
+def test_state_dict_round_trips_through_jax_converter(rng):
+    """port net.* → the JAX package's convert_reference_weathernet → the
+    original JAX net tree, the stem's s2d kernel included."""
+    _, params, stats = jax_variables(rng)
+    model = port_model(params, stats)
+    net_sd = {k[len("net."):]: v.numpy() for k, v in model.state_dict().items()
+              if k.startswith("net.")}
+    back_p, back_s = convert_reference_weathernet(net_sd)
+
+    def assert_same_tree(a, b, path=""):
+        assert set(a) == set(b), (path, sorted(set(a) ^ set(b)))
+        for k in a:
+            if isinstance(a[k], dict):
+                assert_same_tree(a[k], b[k], f"{path}/{k}")
+            else:
+                np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]),
+                                              err_msg=f"{path}/{k}")
+
+    assert_same_tree(back_p, params["net"])
+    assert_same_tree(back_s, stats["net"])
+
+
+def test_projection_head_matches_jax(rng):
+    x = rng.standard_normal((4, 2, 128)).astype(np.float32)
+    jhead = JaxProjectionHead()
+    v = jax_to_py(jhead.init(jax.random.PRNGKey(1), jnp.asarray(x))["params"])
+    head = ProjectionHead(128, 128)
+    with torch.no_grad():
+        for name in ("fc1", "fc2"):
+            getattr(head, name).weight.copy_(torch.tensor(v[name]["kernel"].T))
+            getattr(head, name).bias.copy_(torch.tensor(v[name]["bias"]))
+        got = head(torch.from_numpy(x)).numpy()
+    want = np.asarray(jhead.apply({"params": v}, jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_unported_backbone_raises():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(Config(model="mobilenetv2"), device="cpu")
