@@ -11,10 +11,21 @@ features, 19 classes) at 2048×1024, batch 8, bf16 through ``build_model`` and
 It checks that the serving path launched each kernel, that its labels agree
 with the plain path on the card and, on a small input, with the CPU path
 (which the CPU tests hold against the JAX package), and times serving with
-``bench.py``'s protocol. Any failure raises and exits non-zero; so does a
-machine without CUDA or a directory without the package. The last line is
-``{"ok": true, "device": {...}}``; the line before it lists each kernel's
-launches, error and times.
+``bench.py``'s protocol.
+
+Then training: the contrastive sweep kernels (K3 row stats, K4 positive
+sweep) against their plain versions and the public losses' values and
+gradients against autograd of the dense losses (phase 6); the flagship
+doubly-contrastive train step at 768², batch 8 with two views, bf16, with
+gradient checkpointing, whose losses take the plain route as in the JAX
+package, so K3/K4 launch 0 times, plus one small step on the card against
+the CPU path (phase 7); and the same step at batch 216 on 96² crops, where
+pixel contrast has 8208 ≥ 8192 rows and runs through K3 and K4, against the
+same step on the plain route (phase 8).
+
+Any failure raises and exits non-zero; so does a machine without CUDA or a
+directory without the package. The last line is ``{"ok": true, "device":
+{...}}``; the line before it lists each kernel's launches, error and times.
 """
 
 from __future__ import annotations
@@ -30,6 +41,10 @@ PEAK_BF16_TENSOR_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 
 BATCH, HEIGHT, WIDTH = 8, 1024, 2048
+CRITERION = "supcon_pixelcontrast_focal"
+TRAIN_BATCH, TRAIN_CROP = 8, 768       # the published recipe (JAX config.py:98, 241)
+DENSE_BATCH, DENSE_CROP = 216, 96      # 216·19·2 = 8208 ≥ 8192 pixel-contrast rows
+KERNEL_N, D_FEAT = 8192, 128
 
 
 def check(cond: bool, msg: str) -> None:
@@ -146,6 +161,313 @@ def head_phase(torch, seghead, gen, dev):
     return headline_dis
 
 
+def contrastive_inputs(torch, gen, dev, n, n_labels, d=D_FEAT):
+    """(z, labels, valid) with about 10 % of the rows invalid."""
+    z = (torch.randn(n, d, generator=gen) / d ** 0.5).to(dev)
+    labels = torch.randint(0, n_labels, (n,), generator=gen).to(dev)
+    valid = (torch.rand(n, generator=gen) >= 0.1).to(dev)
+    return z, labels, valid
+
+
+def stat_errors(torch, got, ref, valid):
+    """Max abs error of each of (p, c, s, m, n) and whether each is within
+    its tolerance: 1e-5·max|ref| for p, m (valid rows; invalid rows must be
+    -1e30 exactly), n; 1e-5 relative for s; exact for c."""
+    errs, ok = {}, True
+    for name, g, r in zip("pcsmn", got, ref):
+        if name == "m":
+            ok &= bool(torch.equal(g[~valid], r[~valid]))
+            g, r = g[valid], r[valid]
+        err = (g - r).abs()
+        errs[name] = err.max().item()
+        if name == "c":
+            ok &= errs[name] == 0.0
+        elif name == "s":
+            ok &= bool((err <= 1e-5 * r.abs() + 1e-30).all())
+        else:
+            ok &= errs[name] <= 1e-5 * r.abs().max().item()
+    return errs, ok
+
+
+def contrastive_phase(torch, contrastive, gen, dev):
+    """K3 and K4 against their plain versions on the card in f32, then the
+    public losses' values and gradients against autograd of the dense
+    losses, then the kernel route alone at N = 65536. Returns the kernel
+    line's numbers."""
+    from doubly_contrastive_semseg_tpu_torch.losses.pixel_contrast import _masked_contrastive
+    from doubly_contrastive_semseg_tpu_torch.losses.supcon import supcon_loss
+
+    k3_err = k4_err = 0.0
+    for n in (KERNEL_N, KERNEL_N + 8, 300):
+        for neg_mode, n_labels in ((False, 4), (True, 19)):
+            z, labels, valid = contrastive_inputs(torch, gen, dev, n, n_labels)
+            got = contrastive.contrastive_row_stats(z, labels, valid, neg_mode=neg_mode)
+            ref = contrastive.contrastive_row_stats_reference(z, labels, valid,
+                                                              neg_mode=neg_mode)
+            torch.cuda.synchronize()
+            errs, ok = stat_errors(torch, got, ref, valid)
+            line = ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            log(f"  row stats N={n} neg_mode={neg_mode}: max abs err {line}")
+            check(ok, f"contrastive_row_stats disagrees at N={n} neg_mode={neg_mode}")
+            if neg_mode:
+                p, c, s_, m, nrm = got
+                q, c4 = contrastive.pixel_contrast_pos_sweep(z, labels, valid, m, nrm, s_)
+                q_ref, c_ref = contrastive.pixel_contrast_sweep_reference(
+                    z, labels, valid, m, nrm, s_)
+                torch.cuda.synchronize()
+                q_err = (q - q_ref).abs().max().item()
+                log(f"  positive sweep N={n}: q max abs err {q_err:.2e} (tolerance "
+                    f"{1e-5 * q_ref.abs().max().item():.2e}), c exact: "
+                    f"{bool(torch.equal(c4, c_ref))}")
+                check(q_err <= 1e-5 * q_ref.abs().max().item() and torch.equal(c4, c_ref),
+                      f"pixel_contrast_pos_sweep disagrees at N={n}")
+                if n == KERNEL_N:
+                    k3_err, k4_err = max(errs.values()), q_err
+
+    for n in (KERNEL_N, 2 * KERNEL_N):
+        z, labels, valid = contrastive_inputs(torch, gen, dev, n, 19)
+        feats = z.reshape(2, n // 2, D_FEAT).transpose(0, 1)   # (A, 2, D) views
+        a_lab, a_val = labels[: n // 2], valid[: n // 2]
+        cases = (
+            ("supcon", lambda x, k: supcon_loss(x, a_lab % 4, use_kernel=k)),
+            ("pixel contrast", lambda x, k: _masked_contrastive(x, a_lab, a_val, 0.07, 0.07,
+                                                                use_kernel=k)))
+        for name, fn in cases:
+            res = []
+            for use_kernel in (True, False):
+                x = feats.detach().clone().requires_grad_(True)
+                loss = fn(x, use_kernel)
+                loss.backward()
+                res.append((loss.item(), x.grad))
+            torch.cuda.synchronize()
+            g_err = (res[0][1] - res[1][1]).abs().max().item()
+            g_tol = 1e-4 * res[1][1].abs().max().item()
+            rel = abs(res[0][0] - res[1][0]) / abs(res[1][0])
+            log(f"  {name} loss N={n}: kernel {res[0][0]:.7f}, dense {res[1][0]:.7f} "
+                f"(rel {rel:.2e}); grad max abs err {g_err:.2e} (tolerance {g_tol:.2e})")
+            check(rel <= 1e-5 and g_err <= g_tol, f"{name} kernel loss disagrees at N={n}")
+            del res
+
+    n = 8 * KERNEL_N   # the dense route would hold 17 GB N×N temporaries
+    z, labels, valid = contrastive_inputs(torch, gen, dev, n, 19)
+    x = z.reshape(2, n // 2, D_FEAT).transpose(0, 1).contiguous().requires_grad_(True)
+    t0 = time.perf_counter()
+    loss = contrastive.pixel_contrast_loss_kernel(x, labels[: n // 2], valid[: n // 2])
+    loss.backward()
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(loss).item() and torch.isfinite(x.grad).all().item())
+    log(f"  pixel contrast kernel route alone, N={n}: loss {loss.item():.6f}, "
+        f"gradient finite: {finite}, {time.perf_counter() - t0:.2f} s forward + backward")
+    check(finite, f"kernel route not finite at N={n}")
+    del x, loss, z
+
+    # times: K3 (three sweeps, neg_mode) and K4's sweep, beside the plain versions
+    timing = {}
+    for n in (KERNEL_N, 2 * KERNEL_N):
+        z, labels, valid = contrastive_inputs(torch, gen, dev, n, 19)
+        p, c, s_, m, nrm = contrastive.contrastive_row_stats(z, labels, valid, neg_mode=True)
+        sweep_flops = 2.0 * n * n * D_FEAT
+        t = {
+            "k3_ms": cuda_ms(lambda: contrastive.contrastive_row_stats(
+                z, labels, valid, neg_mode=True)),
+            "k3_plain_ms": cuda_ms(lambda: contrastive.contrastive_row_stats_reference(
+                z, labels, valid, neg_mode=True)),
+            "k4_ms": cuda_ms(lambda: contrastive.pixel_contrast_pos_sweep(
+                z, labels, valid, m, nrm, s_)),
+            "k4_plain_ms": cuda_ms(lambda: contrastive.pixel_contrast_sweep_reference(
+                z, labels, valid, m, nrm, s_)),
+            "k3_bound_ms": 1e3 * max(3 * sweep_flops / PEAK_F32_FLOPS,
+                                     (n * D_FEAT * 4 + n * 8 + 5 * n * 4) / PEAK_BYTES_PER_S),
+            "k4_bound_ms": 1e3 * max(sweep_flops / PEAK_F32_FLOPS,
+                                     (n * D_FEAT * 4 + n * 8 + 5 * n * 4) / PEAK_BYTES_PER_S),
+        }
+        log(f"  N={n}, D={D_FEAT}: row stats (3 sweeps) {t['k3_ms']:.3f} ms, plain "
+            f"{t['k3_plain_ms']:.3f} ms, bound {t['k3_bound_ms']:.3f} ms "
+            f"({3 * sweep_flops / 1e9:.1f} GFLOP: {3 * sweep_flops / t['k3_ms'] / 1e9:.1f} "
+            f"TFLOP/s); positive sweep {t['k4_ms']:.3f} ms, plain {t['k4_plain_ms']:.3f} ms, "
+            f"bound {t['k4_bound_ms']:.3f} ms")
+        timing[n] = t
+    return k3_err, k4_err, timing[KERNEL_N]
+
+
+def snapshot(model, prefixes):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.startswith(prefixes)}
+
+
+def flagship_phase(torch, gen, dev):
+    """7. The flagship step: 6 steps, finite losses, frozen heads unchanged,
+    trunk and BN stats moved, no kernel of the port launched; prints the
+    time per step, throughput and peak memory."""
+    from doubly_contrastive_semseg_tpu_torch import Config, build_model
+    from doubly_contrastive_semseg_tpu_torch.tools.profile_train import make_batch
+    from doubly_contrastive_semseg_tpu_torch.ops import contrastive, seghead, stem
+    from doubly_contrastive_semseg_tpu_torch.train import (
+        TrainState, build_optimizer, make_train_step)
+
+    log(f"== 7. flagship train step: SwiftNet-RN18 {TRAIN_CROP}x{TRAIN_CROP}, batch "
+        f"{TRAIN_BATCH} x 2 views, bf16, efficient, {CRITERION}")
+    torch.backends.cudnn.benchmark = True
+    cfg = Config(criterion=CRITERION, dataset="acdc")
+    model = build_model(cfg, device=dev, seed=0)
+    opt = build_optimizer(model, cfg, steps_per_epoch=200)  # ACDC: 1600 images / 8
+    state = TrainState(model, opt)
+    train_step = make_train_step(model, cfg, opt)
+    batch = make_batch(TRAIN_BATCH, TRAIN_CROP, gen, dev)
+    frozen = ("net.segmentation.conv.", "net.segmentation.norm.weight",
+              "net.segmentation.norm.bias", "weather_clf.", "projection.")
+    before_frozen = snapshot(model, frozen)
+    before_trunk = snapshot(model, ("net.feature_extractor.",))
+    anchors = torch.Generator(device=dev).manual_seed(0)
+    for fn in (contrastive.contrastive_row_stats, contrastive.pixel_contrast_pos_sweep,
+               stem.fused_stem_pool, seghead.fused_seghead_upsample_argmax):
+        fn.launches = 0
+    step_s, peak_gb = [], 0.0
+    for i in range(6):
+        if i == 2:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = train_step(state, batch, anchors)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        comps = {k: v.item() for k, v in metrics.items()}
+        check(all(map(lambda v: v == v and abs(v) < float("inf"), comps.values())),
+              f"flagship step {i}: a loss is not finite: {comps}")
+        log(f"  step {i}: {1e3 * step_s[-1]:.1f} ms; " +
+            ", ".join(f"{k} {v:.4f}" for k, v in comps.items()))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    flag_launches = {"contrastive_row_stats": contrastive.contrastive_row_stats.launches,
+                     "pixel_contrast_pos_sweep": contrastive.pixel_contrast_pos_sweep.launches,
+                     "fused_stem_pool": stem.fused_stem_pool.launches,
+                     "fused_seghead_upsample_argmax":
+                         seghead.fused_seghead_upsample_argmax.launches}
+    timed = step_s[2:]
+    ms_step = 1e3 * sum(timed) / len(timed)
+    log(f"  launches in 6 steps: {flag_launches} (the JAX routing gives 0: "
+        f"supcon N = {2 * TRAIN_BATCH}, pixel contrast N = {TRAIN_BATCH * 19 * 2} < 8192)")
+    check(all(v == 0 for v in flag_launches.values()),
+          "the flagship step must launch no kernel of this port")
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], check=True, capture_output=True, text=True).stdout.strip()
+    log(f"  flagship step: {ms_step:.2f} ms per step (steps 2-5: "
+        f"{', '.join(f'{1e3 * t:.2f}' for t in timed)}), "
+        f"{TRAIN_BATCH * 1e3 / ms_step:.2f} samples/s = {2 * TRAIN_BATCH * 1e3 / ms_step:.2f} "
+        f"crops/s, peak memory {peak_gb:.2f} GB; sm clock, power, temp after: {clocks}")
+    after = model.state_dict()
+    check(all(torch.equal(v, after[k]) for k, v in before_frozen.items()),
+          "a frozen parameter (seg head, weather_clf, projection) moved")
+    moved = [k for k, v in before_trunk.items() if not torch.equal(v, after[k])]
+    check(any(k.endswith(".weight") and "conv" in k for k in moved)
+          and any(k.endswith("running_var") for k in moved),
+          "trunk parameters and BN running stats must change")
+    log(f"  frozen heads unchanged; {len(moved)} of {len(before_trunk)} trunk tensors moved")
+    del model, opt, state, train_step, batch, metrics, before_trunk, after
+    torch.cuda.empty_cache()
+
+
+def card_vs_cpu_phase(torch, gen, dev):
+    """7b. One small step (128², 2 × 2 views, reference_rng) on the card
+    and on the CPU path: loss components in f32, gradients in f64."""
+    from doubly_contrastive_semseg_tpu_torch import Config, build_model
+    from doubly_contrastive_semseg_tpu_torch.tools.profile_train import make_batch
+    from doubly_contrastive_semseg_tpu_torch.train import compute_loss
+
+    small_cfg = Config(criterion=CRITERION, dataset="acdc", reference_rng=True,
+                       compute_dtype="float32")
+    small_batch = make_batch(2, 128, gen, "cpu")
+    results = {}
+    # gradients in float64: in f32 the card's and the CPU's forwards differ
+    # by ~1e-6, enough to flip a ReLU whose input is that close to 0, which
+    # moves the gradients below it by up to a few % of their max
+    cfg64 = Config(**{**small_cfg.__dict__, "compute_dtype": "float64"})
+    for where in (dev, "cpu"):
+        b = {k: v.to(where) for k, v in small_batch.items()}
+        m = build_model(small_cfg, device="cpu", seed=4).to(where).train()
+        with torch.no_grad():
+            _, comps, _ = compute_loss(m, small_cfg, b, None)
+        m = build_model(cfg64, device="cpu", seed=4).double().to(where).train()
+        total, _, _ = compute_loss(m, cfg64, b, None)
+        total.backward()
+        results[where] = ({k: v.item() for k, v in comps.items()},
+                          {k: p.grad.cpu() for k, p in m.named_parameters()
+                           if p.grad is not None})
+        del m, b
+    (c_gpu, g_gpu), (c_cpu, g_cpu) = results[dev], results["cpu"]
+    comp_rel = max(abs(c_gpu[k] - c_cpu[k]) / max(abs(c_cpu[k]), 1e-30) for k in c_cpu)
+    grad_rel = max((g_gpu[k] - g_cpu[k]).abs().max().item()
+                   / max(g_cpu[k].abs().max().item(), 1e-30) for k in g_cpu)
+    log(f"  small f32 step (128², 2 x 2 views) card vs CPU: loss components max rel "
+        f"err {comp_rel:.2e} (tolerance 1e-4); f64 gradients max err {grad_rel:.2e} "
+        f"of max|g| per tensor (tolerance 1e-3), {len(g_cpu)} tensors")
+    check(set(g_gpu) == set(g_cpu) and comp_rel <= 1e-4 and grad_rel <= 1e-3,
+          "the card's train step disagrees with the CPU path")
+
+
+def dense_phase(torch, gen, dev):
+    """8. The dense-contrast step: 3 steps, each launching K3's three sweeps
+    and K4's sweep; step 0's losses against the plain route on the same
+    weights. Returns the launch counts of the 3 steps."""
+    from doubly_contrastive_semseg_tpu_torch import Config, build_model
+    from doubly_contrastive_semseg_tpu_torch.tools.profile_train import make_batch
+    from doubly_contrastive_semseg_tpu_torch.ops import contrastive
+    from doubly_contrastive_semseg_tpu_torch.train import (
+        TrainState, build_optimizer, compute_loss, make_train_step)
+
+    cfg = Config(criterion=CRITERION, dataset="acdc")
+    n_rows = DENSE_BATCH * 19 * 2
+    log(f"== 8. dense-contrast train step: batch {DENSE_BATCH} x 2 views at "
+        f"{DENSE_CROP}x{DENSE_CROP}, bf16, {CRITERION}; pixel contrast N = {n_rows}")
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True   # the two routes see one forward
+    model = build_model(cfg, device=dev, seed=1)
+    opt = build_optimizer(model, cfg, steps_per_epoch=200)
+    state = TrainState(model, opt)
+    train_step = make_train_step(model, cfg, opt)
+    batch = make_batch(DENSE_BATCH, DENSE_CROP, gen, dev)
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    model.train()
+    with torch.no_grad():
+        _, plain, _ = compute_loss(model, cfg, batch,
+                                   torch.Generator(device=dev).manual_seed(5),
+                                   use_kernel=False)
+    model.load_state_dict(weights)
+    del weights
+    contrastive.contrastive_row_stats.launches = 0
+    contrastive.pixel_contrast_pos_sweep.launches = 0
+    anchors = torch.Generator(device=dev).manual_seed(5)
+    for i in range(3):
+        k3_before = contrastive.contrastive_row_stats.launches
+        k4_before = contrastive.pixel_contrast_pos_sweep.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = train_step(state, batch, anchors)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        comps = {k: v.item() for k, v in metrics.items()}
+        d3 = contrastive.contrastive_row_stats.launches - k3_before
+        d4 = contrastive.pixel_contrast_pos_sweep.launches - k4_before
+        log(f"  step {i}: {1e3 * dt:.1f} ms, row-stats sweeps {d3}, positive sweeps {d4}; "
+            + ", ".join(f"{k} {v:.5f}" for k, v in comps.items()))
+        check(d3 == 3 and d4 == 1, "each dense step must launch 3 row-stats sweeps and "
+              "1 positive sweep")
+        check(all(map(lambda v: v == v and abs(v) < float("inf"), comps.values())),
+              f"dense step {i}: a loss is not finite")
+        if i == 0:
+            rel = {k: abs(comps[k] - plain[k].item()) / max(abs(plain[k].item()), 1e-30)
+                   for k in plain}
+            log("  step 0 vs the plain route on the same weights: "
+                + ", ".join(f"{k} {plain[k].item():.6f} (rel {rel[k]:.2e})" for k in plain))
+            check(max(rel.values()) <= 1e-4, "the kernel route disagrees with the plain route")
+    dense_launches = {"contrastive_row_stats": contrastive.contrastive_row_stats.launches,
+                      "pixel_contrast_pos_sweep": contrastive.pixel_contrast_pos_sweep.launches}
+    log(f"  launches in 3 steps: {dense_launches}")
+    del model, opt, state, train_step, batch
+    torch.backends.cudnn.deterministic = False
+    return dense_launches
+
+
 def main() -> int:
     import torch
 
@@ -155,7 +477,9 @@ def main() -> int:
         return 1
     try:
         from doubly_contrastive_semseg_tpu_torch import Config, build_model, make_serving_fn
-        from doubly_contrastive_semseg_tpu_torch.ops import _build, seghead, stem
+        from doubly_contrastive_semseg_tpu_torch.ops import _build, contrastive, seghead, stem
+        from doubly_contrastive_semseg_tpu_torch.train import (
+            TrainState, build_optimizer, compute_loss, make_train_step)
     except ImportError as e:
         print(f"chip_smoke: the port's package is not importable here: {e}",
               file=sys.stderr)
@@ -171,9 +495,9 @@ def main() -> int:
     # 1. card and build
     log(f"== 1. card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    build_logs = _build.build(["stem_pool", "seghead"])
-    log(f"  built csrc/stem_pool.cu and csrc/seghead.cu for sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s")
+    build_logs = _build.build(["stem_pool", "seghead", "contrastive"])
+    log(f"  built csrc/stem_pool.cu, csrc/seghead.cu and csrc/contrastive.cu for "
+        f"sm_90a in {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
@@ -329,6 +653,34 @@ def main() -> int:
         "bound_ms": head_bound,
         "bound_by": "bytes" if nbytes / PEAK_BYTES_PER_S > ops_s else "operations",
         "library_ms": None})
+
+    del model, serve, image, labels
+    torch.cuda.empty_cache()
+
+    # 6. the contrastive kernels
+    log("== 6. contrastive kernels (K3 row stats, K4 positive sweep) vs their plain "
+        "versions, f32")
+    k3_err, k4_err, k_times = contrastive_phase(torch, contrastive, gen, dev)
+
+    # 7-8. training
+    flagship_phase(torch, gen, dev)
+    card_vs_cpu_phase(torch, gen, dev)
+    dense_launches = dense_phase(torch, gen, dev)
+
+    kernels.append({
+        "name": "contrastive_row_stats", "route": "cuda",
+        "source": "doubly_contrastive_semseg_tpu_torch/csrc/contrastive.cu",
+        "replaces": "doubly_contrastive_semseg_tpu/ops/contrastive_pallas.py:235",
+        "launches": dense_launches["contrastive_row_stats"], "max_abs_err": k3_err,
+        "ms": k_times["k3_ms"], "plain_ms": k_times["k3_plain_ms"],
+        "bound_ms": k_times["k3_bound_ms"], "bound_by": "operations", "library_ms": None})
+    kernels.append({
+        "name": "pixel_contrast_pos_sweep", "route": "cuda",
+        "source": "doubly_contrastive_semseg_tpu_torch/csrc/contrastive.cu",
+        "replaces": "doubly_contrastive_semseg_tpu/ops/contrastive_pallas.py:510",
+        "launches": dense_launches["pixel_contrast_pos_sweep"], "max_abs_err": k4_err,
+        "ms": k_times["k4_ms"], "plain_ms": k_times["k4_plain_ms"],
+        "bound_ms": k_times["k4_bound_ms"], "bound_by": "operations", "library_ms": None})
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

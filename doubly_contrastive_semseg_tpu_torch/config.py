@@ -1,4 +1,4 @@
-"""The model fields of the JAX package's ``Config`` that ``build_model`` reads.
+"""The fields of the JAX package's ``Config`` that the port reads.
 
 Defaults match ``doubly_contrastive_semseg_tpu/config.py`` (``num_classes``
 is the ACDC/Cityscapes 19 the JAX CLI fills in per dataset). The port has
@@ -12,12 +12,53 @@ from dataclasses import dataclass
 
 @dataclass
 class Config:
+    # -- model
     model: str = "resnet18"
     num_classes: int = 19
     weather_num: int = 4
-    # activations' dtype; parameters stay float32 either way
+    # activations' dtype; parameters stay float32 (a float64 check also
+    # casts the model's parameters with .double())
     compute_dtype: str = "bfloat16"
     # eval-only fused stem kernel (ops/stem.py); False runs conv→BN→ReLU→pool
     fuse_stem: bool = True
-    # gradient checkpointing in training; read by the training slice
+    # gradient checkpointing of each BasicBlock's (conv, BN) pairs in
+    # training, with torch's reentrant recompute folding bn1/bn2's batch
+    # moments into the running stats twice (reference weathernet.py:43)
     efficient: bool = True
+
+    # -- training (JAX config.py:84-101, 140-142, 167-177)
+    dataset: str = "acdc"
+    criterion: str = "none"
+    lr: float = 4e-4
+    last_lr: float = 1e-6
+    epochs: int = 400
+    lr_policy: str = "cos_annealing"
+    weight_decay: float = 1e-4
+    optimizer_policy: str = "ADAM"
+    step_size: int = 10_000
+    batch_size: int = 8
+    no_class_weights: bool = False
+    no_EDT: bool = False
+    # the reference never optimises the projection head, the weather
+    # classifier or (under ADAM) WeatherNet's seg head; each flag opts one in
+    train_projection: bool = False
+    train_weather_clf: bool = False
+    train_seg_head: bool = False
+    # SGD only: the seg head's lr × 10 group
+    train_semantic: bool = False
+    # A/B parity mode: pixel-contrast anchors are the first raster indices
+    reference_rng: bool = False
+
+    @property
+    def ignore_index(self) -> int:
+        return 255
+
+    @property
+    def use_supcon(self) -> bool:
+        """Two-view batches and image-level contrast (reference
+        ``trainer.py:66-72``)."""
+        return "supcon" in self.criterion
+
+    @property
+    def use_pixelcontrast(self) -> bool:
+        return "pixelcontrast" in self.criterion

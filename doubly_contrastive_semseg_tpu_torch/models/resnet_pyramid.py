@@ -11,6 +11,16 @@ Module names follow the reference's torch ``state_dict`` (``conv1`` as a
 dense 7×7 kernel, ``layer{s}.{b}.downsample.{0,1}``,
 ``upsample_bottlenecks{j}``, ``upsample_blends{i}``), so
 ``utils/convert.py`` and the JAX package's torch converter both apply.
+
+Training with ``efficient=True`` checkpoints each BasicBlock's (conv1, bn1,
+ReLU) and (conv2, bn2) as the reference does (``do_efficient_fwd``,
+reference ``resnet_pyramid.py:39-44``): ``torch.utils.checkpoint`` with
+``use_reentrant=True``, whose recompute in the backward runs bn1 and bn2 in
+training mode again and so folds the same batch moments into their running
+stats a second time. The JAX package reproduces that in closed form
+(``update_passes=2``, JAX ``models/blocks.py:54-65``). The downsample branch
+is not checkpointed and updates once. The training stem is the plain
+conv → BN → ReLU → pool.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ from typing import Dict, Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.input_pipeline import build_pyramid
 from ..ops.stem import fused_stem_pool
@@ -32,8 +43,10 @@ class BasicBlock(nn.Module):
     """conv3×3(s) → BN → ReLU → conv3×3 → BN, projection shortcut on a
     stride or width change, add, ReLU (reference ``resnet_pyramid.py:55-89``)."""
 
-    def __init__(self, in_planes: int, planes: int, stride: int = 1):
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 efficient: bool = False):
         super().__init__()
+        self.efficient = efficient
         self.conv1 = conv_kxk(in_planes, planes, 3, stride)
         self.bn1 = batch_norm(planes)
         self.conv2 = conv_kxk(planes, planes, 3, 1)
@@ -44,9 +57,20 @@ class BasicBlock(nn.Module):
                 Conv2d(in_planes, planes, 1, stride=stride, bias=False),
                 batch_norm(planes))
 
+    def _part1(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.bn1(self.conv1(x)))
+
+    def _part2(self, x: torch.Tensor) -> torch.Tensor:
+        return self.bn2(self.conv2(x))
+
+    def _run(self, part, x: torch.Tensor) -> torch.Tensor:
+        # reference do_efficient_fwd: checkpoint only where a gradient flows
+        if self.efficient and self.training and x.requires_grad:
+            return checkpoint(part, x, use_reentrant=True, preserve_rng_state=False)
+        return part(x)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+        out = self._run(self._part2, self._run(self._part1, x))
         residual = x if self.downsample is None else self.downsample(x)
         return torch.relu(out + residual)
 
@@ -57,7 +81,8 @@ class PyramidResNet(nn.Module):
     channels_last NCHW tensor, {"skips_0": the coarsest skip})."""
 
     def __init__(self, layers: Sequence[int] = (2, 2, 2, 2),
-                 fuse_stem: bool = True, dtype: torch.dtype = torch.float32):
+                 fuse_stem: bool = True, efficient: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fuse_stem = fuse_stem
         self.dtype = dtype
@@ -69,7 +94,7 @@ class PyramidResNet(nn.Module):
             blocks = []
             for bi in range(n_blocks):
                 stride = 2 if (si > 0 and bi == 0) else 1
-                blocks.append(BasicBlock(in_planes, planes, stride))
+                blocks.append(BasicBlock(in_planes, planes, stride, efficient))
                 in_planes = planes
             setattr(self, f"layer{si + 1}", nn.Sequential(*blocks))
             setattr(self, f"upsample_bottlenecks{si + 1}",

@@ -2,7 +2,8 @@
 model factory — port of the JAX package's ``models/weathernet.py``
 (reference ``network/weathernet.py:14-105``, ``network/classifier.py``).
 
-Outputs are dicts with the JAX package's keys, in its NHWC layout.
+Outputs are dicts with the JAX package's keys, in its NHWC layout. Training
+mode is the module's (``model.train()``), where JAX passes ``train=True``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from ..ops.interpolate import resize_bilinear
 from .blocks import BNReluConv, init_weights
 from .resnet_pyramid import resnet18_pyramid, resnet34_pyramid
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float64": torch.float64}
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -39,8 +40,8 @@ class WeatherClassifier(nn.Module):
 
 class ProjectionHead(nn.Module):
     """Linear → ReLU → Linear projection for image-level contrast (reference
-    ``utils/loss.py:104-109``). The training slice attaches it to the model;
-    the eval path does not use it."""
+    ``utils/loss.py:104-109``), ``DCSSModel.projection`` of a model built
+    for a SupCon criterion; the eval path does not use it."""
 
     def __init__(self, in_features: int = 128, feat_dim: int = 128):
         super().__init__()
@@ -59,7 +60,8 @@ class WeatherNet(nn.Module):
     input size (reference ``network/weathernet.py:60-98``)."""
 
     def __init__(self, backbone: str = "resnet18", num_classes: int = 19,
-                 fuse_stem: bool = True, dtype: torch.dtype = torch.float32):
+                 fuse_stem: bool = True, efficient: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if backbone == "resnet18":
             factory = resnet18_pyramid
@@ -68,36 +70,59 @@ class WeatherNet(nn.Module):
         else:
             raise NotImplementedError(
                 f"backbone {backbone!r} is not ported yet (see ROADMAP.md)")
-        self.feature_extractor = factory(fuse_stem=fuse_stem, dtype=dtype)
+        self.feature_extractor = factory(fuse_stem=fuse_stem, efficient=efficient,
+                                         dtype=dtype)
         self.segmentation = BNReluConv(128, num_classes, k=1, bias=True)
 
-    def forward(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, image: torch.Tensor,
+                return_supcon_feature: bool = False) -> Dict[str, torch.Tensor]:
+        """With ``return_supcon_feature`` the batch is the two-view concat
+        (2B, H, W, 3) and only the first view (``fine_feat0``) feeds the seg
+        head (reference ``weathernet.py:76-85``)."""
         feat, additional = self.feature_extractor(image)
-        seg_beforeup = _nhwc(self.segmentation(feat)).float()
+        feat0 = feat[:feat.shape[0] // 2] if return_supcon_feature else feat
+        seg_beforeup = _nhwc(self.segmentation(feat0)).float()
         return {
             "seg": resize_bilinear(seg_beforeup, tuple(image.shape[1:3])),
             "seg_beforeup": seg_beforeup,
             "fine_feat": _nhwc(feat),
-            "fine_feat0": _nhwc(feat),
+            "fine_feat0": _nhwc(feat0),
             "skips_0": _nhwc(additional["skips_0"]),
         }
 
 
 class DCSSModel(nn.Module):
-    """WeatherNet plus the weather classifier, with the JAX ``DCSSModel``'s
-    eval outputs. ``image`` is (B, H, W, 3) pixels; parameters are float32
-    and activations run in ``dtype``."""
+    """WeatherNet plus the weather classifier and, with ``projection``, the
+    SupCon projection head, with the JAX ``DCSSModel``'s outputs. ``image``
+    is (B, H, W, 3) pixels; parameters are float32 and activations run in
+    ``dtype``. The JAX model's parameter tree holds ``projection`` exactly
+    when it was initialised with ``return_supcon_feature=True``."""
 
     def __init__(self, backbone: str = "resnet18", num_classes: int = 19,
                  weather_num: int = 4, fuse_stem: bool = True,
+                 efficient: bool = False, projection: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.net = WeatherNet(backbone, num_classes, fuse_stem, dtype)
+        self.net = WeatherNet(backbone, num_classes, fuse_stem, efficient, dtype)
         self.weather_clf = WeatherClassifier(128, weather_num)
+        self.projection = ProjectionHead(128, 128) if projection else None
 
-    def forward(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
-        out = self.net(image)
+    def forward(self, image: torch.Tensor,
+                return_supcon_feature: bool = False) -> Dict[str, torch.Tensor]:
+        """``return_supcon_feature``: ``image`` is the two-view concat
+        (2B, H, W, 3); ``supcon_proj`` is the (B, 2, 128) projection of the
+        globally pooled features of both views (reference
+        ``utils/loss.py:114-120``)."""
+        out = self.net(image, return_supcon_feature)
         out["weather_logits"] = self.weather_clf(out["fine_feat0"])
+        if return_supcon_feature:
+            if self.projection is None:
+                raise ValueError("DCSSModel: return_supcon_feature needs a model "
+                                 "built with projection=True")
+            pooled = out["fine_feat"].mean(dim=(1, 2))              # (2B, 128)
+            bsz = pooled.shape[0] // 2
+            out["supcon_proj"] = self.projection(
+                torch.stack([pooled[:bsz], pooled[bsz:]], dim=1))  # (B, 2, 128)
         return out
 
     def forward_features(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -113,7 +138,9 @@ class DCSSModel(nn.Module):
 def build_model(cfg, device="cuda", seed: int = 0) -> DCSSModel:
     """Model factory (reference ``utils/init_trainer.py:97-111``) for the
     ported backbones, with weights drawn from ``torch.Generator`` seeded by
-    ``seed``. Runs on the card unless ``device`` asks for the CPU."""
+    ``seed``, in eval mode. A SupCon criterion (``cfg.use_supcon``) adds
+    the projection head. Runs on the card unless ``device`` asks for the
+    CPU."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: CUDA is not available; pass "
@@ -123,6 +150,7 @@ def build_model(cfg, device="cuda", seed: int = 0) -> DCSSModel:
             f"model {cfg.model!r} is not ported yet (see ROADMAP.md)")
     model = DCSSModel(backbone=cfg.model, num_classes=cfg.num_classes,
                       weather_num=cfg.weather_num, fuse_stem=cfg.fuse_stem,
+                      efficient=cfg.efficient, projection=cfg.use_supcon,
                       dtype=_DTYPES[cfg.compute_dtype])
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device=device, memory_format=torch.channels_last).eval()

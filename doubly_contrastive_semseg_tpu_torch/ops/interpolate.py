@@ -25,6 +25,21 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Nearest resize with torch's asymmetric map ``src = floor(dst·in/out)``
+    (JAX ``ops/interpolate.py::resize_nearest``), as an index gather, so
+    integer label maps stay exact. A 4-d tensor is NHWC; otherwise the last
+    two dims are (H, W)."""
+    h_ax, w_ax = (1, 2) if x.dim() == 4 else (x.dim() - 2, x.dim() - 1)
+    in_h, in_w = x.shape[h_ax], x.shape[w_ax]
+    out_h, out_w = size
+    rows = torch.floor(torch.arange(out_h, dtype=torch.float32, device=x.device)
+                       * (in_h / out_h)).long()
+    cols = torch.floor(torch.arange(out_w, dtype=torch.float32, device=x.device)
+                       * (in_w / out_w)).long()
+    return x.index_select(h_ax, rows).index_select(w_ax, cols)
+
+
 def downsample_bicubic_direct(x: torch.Tensor, level: int) -> torch.Tensor:
     """Pyramid level ``level`` straight from the full-resolution NHWC image:
     ``F.interpolate(x, scale_factor=2**-level, mode="bicubic")`` (reference

@@ -6,6 +6,10 @@ nor the JAX package. Conventions, the inverse of the JAX package's
 ``utils/torch_convert.py``: conv kernel HWIO → OIHW, dense (I, O) → (O, I),
 BN scale/bias/mean/var → weight/bias/running_mean/running_var, and the s2d
 stem kernel (4, 4, 12, 64) → the dense (64, 3, 7, 7) ``conv1.weight``.
+A JAX model initialised for training (``return_supcon_feature=True``) has
+``projection/{fc1,fc2}``, which land on ``projection.{fc1,fc2}`` of a port
+model built with ``projection=True``. A tree of gradients maps like a tree
+of parameters.
 """
 
 from __future__ import annotations

@@ -98,6 +98,44 @@ def test_state_dict_round_trips_through_jax_converter(rng):
     assert_same_tree(back_s, stats["net"])
 
 
+def test_training_built_model_round_trips(rng):
+    """A JAX model initialised for training holds ``projection``: it loads
+    strictly into a port model built for a SupCon criterion, ``net.*`` goes
+    back through the JAX converter to the same tree, ``projection.*`` back
+    to the JAX dense kernels, and the two-view forward's projection agrees."""
+    jmodel = JaxDCSSModel(backbone="resnet18", num_classes=19, weather_num=4,
+                          dtype=jnp.float32)
+    x = rng.uniform(0, 255, (2,) + SHAPE[1:]).astype(np.float32)
+    v = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(x), train=True,
+                    return_supcon_feature=True)
+    params, stats = jax_to_py(v["params"]), jax_to_py(v["batch_stats"])
+    randomize_bn(params, stats, rng)
+    assert "projection" in params
+    model = port_model(params, stats, criterion="supcon_pixelcontrast_focal")
+    sd = model.state_dict()
+    back_p, back_s = convert_reference_weathernet(
+        {k[len("net."):]: t.numpy() for k, t in sd.items() if k.startswith("net.")})
+    np.testing.assert_array_equal(back_p["segmentation"]["conv"]["kernel"],
+                                  params["net"]["segmentation"]["conv"]["kernel"])
+    np.testing.assert_array_equal(back_s["feature_extractor"]["layer2_0"]["bn1"]["var"],
+                                  stats["net"]["feature_extractor"]["layer2_0"]["bn1"]["var"])
+    for name in ("fc1", "fc2"):
+        np.testing.assert_array_equal(sd[f"projection.{name}.weight"].numpy().T,
+                                      params["projection"][name]["kernel"])
+        np.testing.assert_array_equal(sd[f"projection.{name}.bias"].numpy(),
+                                      params["projection"][name]["bias"])
+    want = jmodel.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
+                        train=False, return_supcon_feature=True)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x), return_supcon_feature=True)
+    for key in ("supcon_proj", "seg_beforeup", "weather_logits"):
+        assert tuple(got[key].shape) == tuple(want[key].shape), key
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=1e-4, atol=1e-4, err_msg=key)
+    with pytest.raises(RuntimeError, match="projection"):  # built without the head
+        port_model(params, stats)
+
+
 def test_projection_head_matches_jax(rng):
     x = rng.standard_normal((4, 2, 128)).astype(np.float32)
     jhead = JaxProjectionHead()
