@@ -1,4 +1,4 @@
-"""Shared model blocks: the eval path of the JAX package's ``models/blocks.py``.
+"""Shared model blocks: port of the JAX package's ``models/blocks.py``.
 
 Tensors inside the model are NCHW-shaped in ``torch.channels_last`` memory,
 so their NHWC views (the public layout, as in the JAX package) cost no copy.
@@ -7,7 +7,10 @@ Dtypes: parameters stay float32. Activations run in the dtype the pyramid
 hands the trunk (``compute_dtype``: bf16 on the card). Each conv casts its
 weight to the activation dtype at the call; each eval BatchNorm folds its
 running statistics into a float32 scale/shift, cast to the activation dtype
-for the multiply-add.
+for the multiply-add. In training, BatchNorm is ``nn.BatchNorm2d``: it
+normalises with the biased batch variance and folds the unbiased one into
+the running variance, as the reference's torch BN does (the JAX package's
+``TorchBatchNorm`` reproduces that by hand).
 """
 
 from __future__ import annotations
