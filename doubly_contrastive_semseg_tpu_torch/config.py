@@ -16,8 +16,7 @@ class Config:
     model: str = "resnet18"
     num_classes: int = 19
     weather_num: int = 4
-    # activations' dtype; parameters stay float32 (a float64 check also
-    # casts the model's parameters with .double())
+    # activations' dtype; parameters stay float32 either way
     compute_dtype: str = "bfloat16"
     # eval-only fused stem kernel (ops/stem.py); False runs conv→BN→ReLU→pool
     fuse_stem: bool = True

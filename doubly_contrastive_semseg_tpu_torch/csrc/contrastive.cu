@@ -18,9 +18,16 @@
 // _sums_kernel) for the first three sweeps, and the fourth sweep of
 // pixel_contrast_loss_pallas (_pc_kernel).
 //
-// Bound: operations. Each sweep recomputes the logits, 2*N^2*D flops of f32
-// FMA on CUDA cores (67 TFLOP/s on an H100 SXM at 700 W): at N = 8192,
-// D = 128 that is 17.2 GFLOP, 0.256 ms a sweep; Z is 4 MB. Design: one
+// Bound: operations, f32 on CUDA cores (67 TFLOP/s on an H100 SXM at 700 W);
+// Z is 4 MB at N = 8192, D = 128. This kernel recomputes every logit in
+// each sweep, 2*N^2*D flops (17.2 GFLOP at that size), but the functions
+// need each distinct logit once, and L is symmetric: the row stats need
+// N(N+1)/2 dot products, N(N+1)*D flops (8.6 GFLOP, 0.128 ms), and the
+// positive sweep only the positive pairs, sum(c_i)*D flops (about 0.37
+// GFLOP, 0.0055 ms, at 19 labels with 10 % of the rows invalid).
+// chip_smoke.py computes both bounds
+// from its inputs; the elementwise work of a few operations a pair is not
+// counted. Design: one
 // block of 128 threads owns 32 rows and walks over all columns in tiles of
 // 64, so each row's accumulators stay in registers and nothing is carried
 // across blocks (no atomics: the result is deterministic). The block keeps

@@ -17,7 +17,7 @@ from ..ops.interpolate import resize_bilinear
 from .blocks import BNReluConv, init_weights
 from .resnet_pyramid import resnet18_pyramid, resnet34_pyramid
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float64": torch.float64}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,10 @@ prints, per step:
 - a split from CUDA events between the model's forward, the losses, the
   backward (with the checkpointed blocks' recompute) and the optimizer;
 - from ``torch.profiler``: device time by kernel, and the device's busy and
-  idle shares of a window of steps.
+  idle shares of a window of steps;
+- the wall time of an unprofiled window of as many steps just before it,
+  and the idle share that the profiled busy time leaves in it (inferred:
+  the profiler slows the host, not the kernels).
 
 The split runs the step's parts one by one, apart from the timed window.
 """
@@ -95,13 +98,18 @@ def profile(name: str, b: int, crop: int) -> None:
         print(f"  {k:10s} {v:8.3f} ms  {100 * v / total:5.1f} %")
     print(f"  {'total':10s} {total:8.3f} ms")
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    def window_ms():
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(ITERS):
             train_step(state, batch, anchors)
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
+        return 1e3 * (time.perf_counter() - t0)
+
+    plain_wall_ms = window_ms()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall_ms = window_ms()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -109,6 +117,11 @@ def profile(name: str, b: int, crop: int) -> None:
     print(f"profiler: {ITERS} steps in {wall_ms:.2f} ms wall; device busy {busy_ms:.2f} ms "
           f"= {100 * busy_ms / wall_ms:.1f} %, idle {100 * (1 - busy_ms / wall_ms):.1f} %; "
           f"{launches} kernel launches a step")
+    # the profiler slows the host, not the kernels: the same busy time over
+    # the unprofiled window just before it estimates the idle share without it
+    print(f"unprofiled: {ITERS} steps in {plain_wall_ms:.2f} ms wall "
+          f"({plain_wall_ms / ITERS:.2f} ms a step); with the profiled window's busy time, "
+          f"idle {100 * (1 - busy_ms / plain_wall_ms):.1f} % (inferred)")
     print("device time by kernel, ms per step:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]:
         print(f"  {e.self_device_time_total / 1e3 / ITERS:8.3f} ms "
