@@ -24,6 +24,16 @@ at batch 216 on 96² crops, where
 pixel contrast has 8208 ≥ 8192 rows and runs through K3 and K4, against the
 same step on the plain route (phase 8).
 
+Then eval: the fused upsample-blend kernel (K5) against its plain version
+at the three decoder steps of a 2048×1024 batch-8 forward, a ragged width,
+B = 1 and C = 256, with its times (phase 9); and ``make_eval_step`` with K5
+on the decoder over 3 batches of 2048×1024, batch 8, bf16, merged into the
+``Evaluator`` with a ``val_results.txt`` report: K2 and K5 launch 3 times a
+batch and K1 never, labels and confusion matrices agree with the unfused
+path up to the flipped pixels, a 1920×1080 batch launches K5 never, a small
+f32 batch agrees with the CPU's eval step, and eval throughput fused and
+unfused (phase 10).
+
 Any failure raises and exits non-zero; so does a machine without CUDA or a
 directory without the package. The last line is ``{"ok": true, "device":
 {...}}``; the line before it lists each kernel's launches, error and times.
@@ -46,6 +56,7 @@ CRITERION = "supcon_pixelcontrast_focal"
 TRAIN_BATCH, TRAIN_CROP = 8, 768       # the published recipe (JAX config.py:98, 241)
 DENSE_BATCH, DENSE_CROP = 216, 96      # 216·19·2 = 8208 ≥ 8192 pixel-contrast rows
 KERNEL_N, D_FEAT = 8192, 128
+VAL_HEIGHT, VAL_WIDTH = 1080, 1920      # the JAX default val shape (config.py:104-105)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -556,6 +567,298 @@ def dense_phase(torch, gen, dev):
     return dense_launches
 
 
+def blend_inputs(torch, gen, dev, b, hh, ww, c=128):
+    """bf16 x (B, H/2, W/2, C) and skip (B, H, W, C), a conv weight of the
+    init's scale and a random BN, on the card."""
+    return dict(x=torch.randn(b, hh // 2, ww // 2, c, generator=gen).to(dev, torch.bfloat16),
+                skip=torch.randn(b, hh, ww, c, generator=gen).to(dev, torch.bfloat16),
+                conv_weight=(torch.randn(c, c, 3, 3, generator=gen) * (2.0 / (9 * c)) ** 0.5
+                             ).to(dev),
+                bn_scale=(torch.rand(c, generator=gen) * 0.3 + 0.5).to(dev),
+                bn_bias=(torch.randn(c, generator=gen) * 0.1).to(dev),
+                bn_mean=(torch.randn(c, generator=gen) * 0.1).to(dev),
+                bn_var=(torch.rand(c, generator=gen) + 1.0).to(dev))
+
+
+def blend_phase(torch, blend, gen, dev):
+    """9. K5 against its plain version on the card at the three decoder
+    steps of a 2048×1024 batch-8 forward that take it, a ragged width tile,
+    B = 1 and C = 256; then their times beside the plain version's, the
+    bound and, for context, the unfused PyTorch step. Returns the kernel
+    line's numbers (the sums over the three headline shapes)."""
+    from doubly_contrastive_semseg_tpu_torch.models.blocks import UpsampleBlend
+
+    headline = [(BATCH, HEIGHT // 16, WIDTH // 16), (BATCH, HEIGHT // 8, WIDTH // 8),
+                (BATCH, HEIGHT // 4, WIDTH // 4)]
+    others = [(2, 64, 72), (1, 16, 40), (2, 16, 32, 256)]   # ragged, B = 1, C = 256
+    err_headline = 0.0
+    for shape in headline + others:
+        b, hh, ww = shape[:3]
+        a = blend_inputs(torch, gen, dev, *shape)
+        for out_dtype, rel_tol in ((torch.float32, 1e-3), (torch.bfloat16, 1e-2)):
+            got = blend.fused_upsample_blend(**a, out_dtype=out_dtype)
+            ref = blend.upsample_blend_reference(**a, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            check(got.shape == ref.shape == (b, hh, ww, shape[3] if len(shape) > 3 else 128)
+                  and got.dtype == out_dtype, f"blend output {tuple(got.shape)} {got.dtype}")
+            err = (got.float() - ref.float()).abs().max().item()
+            ref_max = ref.float().abs().max().item()
+            log(f"  blend {str(out_dtype)[6:]:8s} x {tuple(a['x'].shape)} -> {tuple(got.shape)}: "
+                f"max abs err {err:.3e} = {err / ref_max:.2e} x max|ref| (tolerance {rel_tol})")
+            check(err <= rel_tol * ref_max, f"blend kernel disagrees at {shape} {out_dtype}")
+            if out_dtype == torch.float32 and shape in headline:
+                err_headline = max(err_headline, err)
+        del a, got, ref
+
+    t = {"ms": 0.0, "plain_ms": 0.0, "unfused_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+    for b, hh, ww in headline:
+        a = blend_inputs(torch, gen, dev, b, hh, ww)
+        step = UpsampleBlend(128).to(dev, memory_format=torch.channels_last).eval()
+        with torch.no_grad():
+            step.blend_conv.conv.weight.copy_(a["conv_weight"])
+            norm = step.blend_conv.norm
+            for name, key in (("weight", "bn_scale"), ("bias", "bn_bias"),
+                              ("running_mean", "bn_mean"), ("running_var", "bn_var")):
+                getattr(norm, name).copy_(a[key])
+            x_nchw, skip_nchw = a["x"].permute(0, 3, 1, 2), a["skip"].permute(0, 3, 1, 2)
+            k_ms = cuda_ms(lambda: blend.fused_upsample_blend(**a))
+            p_ms = cuda_ms(lambda: blend.upsample_blend_reference(**a))
+            u_ms = cuda_ms(lambda: step(x_nchw, skip_nchw))
+        nbytes = (a["x"].numel() + 2 * a["skip"].numel() + a["conv_weight"].numel()) * 2
+        flops = 2.0 * b * hh * ww * 9 * 128 * 128
+        log(f"  blend {(b, hh, ww, 128)}: kernel {k_ms:.3f} ms "
+            f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.3f} ms, unfused PyTorch step "
+            f"(interpolate, add, BN, ReLU, cuDNN conv; several calls) {u_ms:.3f} ms, bound "
+            f"{1e3 * max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_TENSOR_FLOPS):.4f} ms "
+            f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        for k, v in (("ms", k_ms), ("plain_ms", p_ms), ("unfused_ms", u_ms),
+                     ("bytes", nbytes), ("flops", flops)):
+            t[k] += v
+        del a, step
+    t["bound_ms"] = 1e3 * max(t["bytes"] / PEAK_BYTES_PER_S, t["flops"] / PEAK_BF16_TENSOR_FLOPS)
+    t["bound_by"] = ("bytes" if t["bytes"] / PEAK_BYTES_PER_S
+                     > t["flops"] / PEAK_BF16_TENSOR_FLOPS else "operations")
+    log(f"  blend, the three steps of a forward: kernel {t['ms']:.3f} ms, plain "
+        f"{t['plain_ms']:.3f} ms, unfused {t['unfused_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']})")
+    torch.cuda.empty_cache()
+    return err_headline, t
+
+
+def eval_batches(torch, dev, n, b, h, w, seed):
+    """``n`` device-resident eval batches: uint8 frames, uint8 labels with
+    about 10 % 255 holes, weather ids. Frames are spatially correlated, as
+    a camera's are: a random grid of one value every 16 pixels, bilinearly
+    upsampled. (On white-noise frames the random model's label map is so
+    fragmented that about 1.8 % of the pixels lie on a class boundary,
+    where bf16 rounding alone flips them.)"""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for _ in range(n):
+        coarse = torch.rand((b, 3, -(-h // 16), -(-w // 16)), generator=g, device=dev)
+        left = torch.nn.functional.interpolate(coarse * 255, size=(h, w), mode="bilinear",
+                                               align_corners=False)
+        label = torch.randint(0, 19, (b, h, w), generator=g, device=dev, dtype=torch.uint8)
+        label[torch.rand((b, h, w), generator=g, device=dev) < 0.1] = 255
+        out.append({"left": left.round().to(torch.uint8).permute(0, 2, 3, 1).contiguous(),
+                    "label": label,
+                    "weather": torch.randint(0, 4, (b,), generator=g, device=dev)})
+    return out
+
+
+def flip_counts(torch, label, pa, pb, c=19):
+    """Pixels with a valid label whose two predictions differ, and for each
+    class the number of those pixels it touches (as label or either
+    prediction): the most that its intersection or union can move."""
+    flipped = (pa != pb) & (label.long() < c)
+    gt, a, b = label.long()[flipped], pa.long()[flipped], pb.long()[flipped]
+    eye = torch.eye(c, dtype=torch.bool, device=label.device)
+    touched = (eye[gt] | eye[a] | eye[b]).sum(0)
+    return int(flipped.sum().item()), touched.double().cpu()
+
+
+def check_within_flips(torch, cm_a, cm_b, n_flips, touched, what):
+    """The two accumulated (C, C) matrices differ only by the flipped
+    pixels: L1 ≤ 2 per flip, and each class's intersection and union by at
+    most the flips that touch it. Returns the largest IoU difference."""
+    a, b = cm_a.double().cpu(), cm_b.double().cpu()
+    l1 = (a - b).abs().sum().item()
+    inter_a, inter_b = a.diagonal(), b.diagonal()
+    union_a = a.sum(0) + a.sum(1) - inter_a
+    union_b = b.sum(0) + b.sum(1) - inter_b
+    iou_diff = (inter_a / union_a - inter_b / union_b).abs().nan_to_num(0.0).max().item()
+    log(f"  {what}: {n_flips} flipped pixels, confusion L1 {l1:.0f} (bound {2 * n_flips}), "
+        f"largest per-class IoU difference {iou_diff:.2e}")
+    check(l1 <= 2 * n_flips and bool(((inter_a - inter_b).abs() <= touched).all())
+          and bool(((union_a - union_b).abs() <= touched).all()),
+          f"{what}: the confusion matrices differ by more than the flipped pixels")
+    return iou_diff
+
+
+def eval_phase(torch, gen, dev):
+    """10. The eval path at full width: ``make_eval_step`` over 3 batches of
+    2048×1024, batch 8, bf16, with K5 on the decoder; launches, the unfused
+    path, ``Evaluator``, 1920×1080, the CPU, and throughput. Returns the
+    launch counts of the 3 batches."""
+    import os
+    import tempfile
+
+    from doubly_contrastive_semseg_tpu_torch import Config, build_model
+    from doubly_contrastive_semseg_tpu_torch.metrics import Evaluator
+    from doubly_contrastive_semseg_tpu_torch.ops import blend, seghead, stem
+    from doubly_contrastive_semseg_tpu_torch.tools.profile_eval import set_fused
+    from doubly_contrastive_semseg_tpu_torch.train import init_eval_accum, make_eval_step
+
+    log(f"== 10. eval SwiftNet-RN18 {WIDTH}x{HEIGHT} batch {BATCH} bf16, fused blends")
+    kernels = {"fused_stem_pool": stem.fused_stem_pool,
+               "fused_seghead_upsample_argmax": seghead.fused_seghead_upsample_argmax,
+               "fused_upsample_blend": blend.fused_upsample_blend}
+
+    def counts():
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    torch.backends.cudnn.benchmark = True
+    cfg = Config()
+    model = build_model(cfg, device=dev, seed=0)
+    randomize_bn(model, torch.Generator().manual_seed(1))
+    model.to(dev)
+    set_fused(model, True)
+    step = make_eval_step(model, cfg)
+    batches = eval_batches(torch, dev, 3, BATCH, HEIGHT, WIDTH, seed=7)
+    accum = init_eval_accum(cfg, device=dev)
+    for fn in kernels.values():
+        fn.launches = 0
+    preds_fused = []
+    for i, batch in enumerate(batches):
+        before = counts()
+        preds, accum = step(batch, accum)
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in counts().items()}
+        log(f"  batch {i}: launches {delta}")
+        check(delta == {"fused_stem_pool": 3, "fused_seghead_upsample_argmax": 0,
+                        "fused_upsample_blend": 3},
+              "each 2048x1024 eval batch must launch K2 3 times, K5 3 times and K1 never")
+        check(preds.shape == (BATCH, HEIGHT, WIDTH) and preds.dtype == torch.int32
+              and 0 <= preds.min().item() and preds.max().item() < 19, "eval preds")
+        preds_fused.append(preds)
+    eval_launches = counts()
+    log(f"  launches in 3 batches: {eval_launches}")
+    n_valid = sum(int((b["label"] < 19).sum().item()) for b in batches)
+    check(accum["cm"].double().sum().item() == n_valid and accum["n_batches"].item() == 3
+          and accum["cm_weather"].double().sum().item() == 3 * BATCH
+          and accum["cm_weather_sem"].double().sum().item() == n_valid,
+          "the accumulators must count every valid pixel and image once")
+
+    # the same weights unfused
+    set_fused(model, False)
+    accum_u = init_eval_accum(cfg, device=dev)
+    n_flips, touched, agree = 0, torch.zeros(19, dtype=torch.float64), []
+    for batch, pf in zip(batches, preds_fused):
+        pu, accum_u = step(batch, accum_u)
+        agree.append((pu == pf).double().mean().item())
+        nf, t = flip_counts(torch, batch["label"], pf, pu)
+        n_flips, touched = n_flips + nf, touched + t
+    log(f"  fused vs unfused labels: agreement {', '.join(f'{a:.6f}' for a in agree)} (bar 0.99)")
+    check(min(agree) >= 0.99, "the fused eval path disagrees with the unfused one")
+    check_within_flips(torch, accum["cm"], accum_u["cm"], n_flips, touched,
+                       "fused vs unfused accumulated cm")
+    del preds_fused, accum_u
+
+    # Trainer.validate's merge and report (JAX trainer.py:372-380)
+    host = {k: v.cpu() for k, v in accum.items()}
+    evaluator = Evaluator(cfg.num_classes, cfg.weather_num)
+    evaluator.merge_device_batch(host["cm"], host["cm_weather_sem"], host["cm_weather"],
+                                 weather_acc=float(host["weather_acc_sum"])
+                                 / max(float(host["n_batches"]), 1.0))
+    score = evaluator.get_results()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "val_results.txt")
+        weather_acc = evaluator.get_weather_results(path)
+        miou = evaluator.Mean_Intersection_over_Union(path)
+        evaluator.Mean_Intersection_over_Union_each_weather(path)
+        with open(path) as f:
+            report = f.read().splitlines()
+    log(f"  Evaluator: {Evaluator.to_str(score).strip().replace(chr(10), ', ')}; weather "
+        f"accuracy {weather_acc:.5f}; val_results.txt {len(report)} lines")
+    # weather matrix (2 + 4 rows + purity + accuracy), class IoU (1 + 19),
+    # per weather (4 x (1 + 19 + 1))
+    check(len(report) == 8 + 20 + 4 * 21 and miou == miou and 0 <= miou <= 1,
+          "the val_results.txt report")
+
+    # 1920x1080: no decoder step passes the guard
+    before = counts()
+    b1080 = eval_batches(torch, dev, 1, BATCH, VAL_HEIGHT, VAL_WIDTH, seed=8)[0]
+    set_fused(model, True)
+    preds, _ = step(b1080, init_eval_accum(cfg, device=dev))
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in counts().items()}
+    log(f"  {VAL_WIDTH}x{VAL_HEIGHT} batch {BATCH}: launches {delta}")
+    check(delta == {"fused_stem_pool": 3, "fused_seghead_upsample_argmax": 0,
+                    "fused_upsample_blend": 0} and preds.shape == (BATCH, VAL_HEIGHT, VAL_WIDTH),
+          "a 1920x1080 eval batch must launch K2 3 times and K5 never")
+    del b1080, preds
+
+    # throughput, fused and unfused in turns (bench.py's windows)
+    iters, fps, peak = 10, {True: [], False: []}, {}
+    for fused in (False, True, True, False, False, True):
+        set_fused(model, fused)
+        for _ in range(3 if fused not in peak else 0):
+            step(batches[0], accum)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            _, acc_t = step(batches[0], accum)
+        torch.cuda.synchronize()
+        fps[fused].append(BATCH * iters / (time.perf_counter() - t0))
+        peak[fused] = max(peak.get(fused, 0.0), torch.cuda.max_memory_allocated() / 1e9)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], check=True, capture_output=True, text=True).stdout.strip()
+    for fused in (True, False):
+        f = fps[fused]
+        log(f"  eval {'fused' if fused else 'unfused'}: {sum(f) / len(f):.2f} frames/s "
+            f"(windows of {iters} batches: {', '.join(f'{x:.2f}' for x in f)}), "
+            f"peak memory {peak[fused]:.2f} GB")
+    log(f"  sm clock, power, temp after: {clocks}")
+    del model, step, batches, accum, acc_t
+    torch.cuda.empty_cache()
+
+    # a small f32 input against the CPU path, blend 5 fused
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    cfg32 = Config(compute_dtype="float32")
+    small = build_model(cfg32, device=dev, seed=2)
+    randomize_bn(small, torch.Generator().manual_seed(3))
+    small.to(dev)
+    cpu = build_model(cfg32, device="cpu", seed=2)
+    cpu.load_state_dict({k: v.cpu() for k, v in small.state_dict().items()})
+    set_fused(small, True)
+    set_fused(cpu, True)
+    batch = {k: v.cpu() for k, v in eval_batches(torch, dev, 1, 2, 256, 256, seed=9)[0].items()}
+    k5 = blend.fused_upsample_blend.launches
+    p_gpu, a_gpu = make_eval_step(small, cfg32)({k: v.to(dev) for k, v in batch.items()},
+                                               init_eval_accum(cfg32, device=dev))
+    check(blend.fused_upsample_blend.launches - k5 == 1, "blend 5 must fuse at 2x256x256")
+    p_cpu, a_cpu = make_eval_step(cpu, cfg32)(batch, init_eval_accum(cfg32, device="cpu"))
+    agree = (p_gpu.cpu() == p_cpu).double().mean().item()
+    nf, touched = flip_counts(torch, batch["label"], p_gpu.cpu(), p_cpu)
+    with torch.no_grad():
+        w_gpu = small(batch["left"].to(dev).float())["weather_logits"].argmax(-1).cpu()
+        w_cpu = cpu(batch["left"].float())["weather_logits"].argmax(-1)
+    w_flips = int((w_gpu != w_cpu).sum().item())
+    log(f"  small f32 eval (2x256x256) vs the CPU: label agreement {agree:.6f} (bar 0.999), "
+        f"weather argmax flips {w_flips}")
+    check(agree >= 0.999, "the card's eval step disagrees with the CPU's")
+    check_within_flips(torch, a_gpu["cm"], a_cpu["cm"], nf, touched, "card vs CPU cm")
+    check((a_gpu["cm_weather"].cpu() - a_cpu["cm_weather"]).abs().sum().item() <= 2 * w_flips
+          and a_gpu["n_batches"].item() == a_cpu["n_batches"].item() == 1,
+          "the card's weather accumulators disagree with the CPU's")
+    torch.backends.cudnn.deterministic = False
+    del small, cpu
+    return eval_launches
+
+
 def main() -> int:
     import torch
 
@@ -565,7 +868,7 @@ def main() -> int:
         return 1
     try:
         from doubly_contrastive_semseg_tpu_torch import Config, build_model, make_serving_fn
-        from doubly_contrastive_semseg_tpu_torch.ops import _build, contrastive, seghead, stem
+        from doubly_contrastive_semseg_tpu_torch.ops import _build, blend, contrastive, seghead, stem
         from doubly_contrastive_semseg_tpu_torch.train import (
             TrainState, build_optimizer, compute_loss, make_train_step)
     except ImportError as e:
@@ -583,9 +886,9 @@ def main() -> int:
     # 1. card and build
     log(f"== 1. card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    build_logs = _build.build(["stem_pool", "seghead", "contrastive"])
-    log(f"  built csrc/stem_pool.cu, csrc/seghead.cu and csrc/contrastive.cu for "
-        f"sm_90a in {time.perf_counter() - t0:.1f} s")
+    build_logs = _build.build(["stem_pool", "seghead", "contrastive", "blend"])
+    log(f"  built csrc/stem_pool.cu, csrc/seghead.cu, csrc/contrastive.cu and csrc/blend.cu "
+        f"for sm_90a in {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
@@ -771,6 +1074,18 @@ def main() -> int:
         "ms": k_times["k4_ms"], "plain_ms": k_times["k4_plain_ms"],
         "bound_ms": k_times["k4_bound_ms"], "bound_by": k_times["k4_bound_by"],
         "library_ms": None})
+
+    # 9-10. eval
+    log("== 9. blend kernel (K5) vs upsample_blend_reference")
+    blend_err, blend_t = blend_phase(torch, blend, gen, dev)
+    eval_launches = eval_phase(torch, gen, dev)
+    kernels.append({
+        "name": "fused_upsample_blend", "route": "cuda",
+        "source": "doubly_contrastive_semseg_tpu_torch/csrc/blend.cu",
+        "replaces": "doubly_contrastive_semseg_tpu/ops/blend_pallas.py:96",
+        "launches": eval_launches["fused_upsample_blend"], "max_abs_err": blend_err,
+        "ms": blend_t["ms"], "plain_ms": blend_t["plain_ms"], "bound_ms": blend_t["bound_ms"],
+        "bound_by": blend_t["bound_by"], "library_ms": None})
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

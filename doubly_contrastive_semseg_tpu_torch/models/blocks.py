@@ -21,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.blend import blend_kernel_supported, fused_upsample_blend
 from ..ops.interpolate import resize_bilinear
 from ..ops.seghead import fold_bn
 
@@ -101,21 +102,35 @@ class UpsampleBlend(nn.Module):
     conv (reference ``_UpsampleBlend``, ``network/utils.py:79-102``; the JAX
     package's k=3, use_bn form).
 
-    ``fuse_inference`` selects the JAX package's fused Pallas blend kernel
-    (``ops/blend_pallas.py``), which the port has not written yet: on a CUDA
-    tensor it raises (ROADMAP.md queues the kernel); on the CPU the plain
-    path runs, as in the JAX package."""
+    ``fuse_inference`` (off by default, as in the JAX package) runs the
+    whole step as one fused op, ``ops/blend.py::fused_upsample_blend``,
+    under the JAX guard: eval mode, x exactly half the skip's size, at least
+    64 output rows, and ``blend_kernel_supported``. The tensor's device picks
+    the route, as for the stem and the head: a CUDA tensor launches the
+    kernel (``csrc/blend.cu``), a CPU tensor takes its plain version (the
+    JAX package instead keeps the unfused XLA step on the CPU backend).
+    Otherwise the step runs unfused. Callers set the attribute on the
+    modules; there is no config flag."""
 
     def __init__(self, features: int = 128, fuse_inference: bool = False):
         super().__init__()
         self.fuse_inference = fuse_inference
         self.blend_conv = PreActConv(features, k=3)
 
+    def _fusable(self, x: torch.Tensor, skip: torch.Tensor) -> bool:
+        hh, ww = skip.shape[-2:]
+        return (self.fuse_inference and not self.training
+                and x.shape[-2] * 2 == hh and x.shape[-1] * 2 == ww and hh >= 64
+                and blend_kernel_supported(hh, ww, skip.shape[1]))
+
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        if self.fuse_inference and x.is_cuda:
-            raise NotImplementedError(
-                "UpsampleBlend(fuse_inference=True): the fused blend kernel "
-                "is not ported yet (see ROADMAP.md)")
+        if self._fusable(x, skip):
+            norm, conv = self.blend_conv.norm, self.blend_conv.conv
+            out = fused_upsample_blend(
+                x.permute(0, 2, 3, 1).contiguous(), skip.permute(0, 2, 3, 1).contiguous(),
+                conv.weight, norm.weight, norm.bias, norm.running_mean,
+                norm.running_var, eps=norm.eps, out_dtype=x.dtype)
+            return out.permute(0, 3, 1, 2)
         hh, ww = skip.shape[-2:]
         x = resize_bilinear(x.permute(0, 2, 3, 1), (hh, ww)).permute(0, 3, 1, 2)
         return self.blend_conv(x + skip)

@@ -1,3 +1,4 @@
+from .blend import blend_kernel_supported, fused_upsample_blend, upsample_blend_reference
 from .contrastive import (contrastive_row_stats, contrastive_row_stats_reference,
                           pixel_contrast_loss_kernel, pixel_contrast_pos_sweep,
                           pixel_contrast_sweep_reference, supcon_loss_kernel)
