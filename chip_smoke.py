@@ -5,13 +5,16 @@
 
 Builds the port's CUDA kernels from ``doubly_contrastive_semseg_tpu_torch/
 csrc`` for sm_90a, holds each kernel against its plain PyTorch version on the
-card, then serves SwiftNet-RN18 (full width: 3 pyramid levels, 128 decoder
-features, 19 classes) at 2048×1024, batch 8, bf16 through ``build_model`` and
-``make_serving_fn``, with weights and BN statistics drawn from a fixed seed.
-It checks that the serving path launched each kernel, that its labels agree
-with the plain path on the card and, on a small input, with the CPU path
-(which the CPU tests hold against the JAX package), and times serving with
-``bench.py``'s protocol.
+card (the stem on both routes, bf16 tensor cores and f32 CUDA cores, through
+``tools/profile_stem.py``, which also times it in phase 5 beside the
+CUDA-core kernel on the same bf16 inputs), then serves SwiftNet-RN18 (full
+width: 3 pyramid levels, 128 decoder features, 19 classes) at 2048×1024,
+batch 8, bf16 through ``build_model`` and ``make_serving_fn``, with weights
+and BN statistics drawn from a fixed seed. It checks that the serving path
+launched each kernel (the stem 3 times, on its tensor-core route), that its
+labels agree with the plain path on the card and, on a small input, with
+the CPU path (which the CPU tests hold against the JAX package), and times
+serving with ``bench.py``'s protocol.
 
 Then training: the contrastive sweep kernels (K3 row stats, K4 positive
 sweep) against their plain versions and the public losses' values and
@@ -28,11 +31,11 @@ Then eval: the fused upsample-blend kernel (K5) against its plain version
 at the three decoder steps of a 2048×1024 batch-8 forward, a ragged width,
 B = 1 and C = 256, with its times (phase 9); and ``make_eval_step`` with K5
 on the decoder over 3 batches of 2048×1024, batch 8, bf16, merged into the
-``Evaluator`` with a ``val_results.txt`` report: K2 and K5 launch 3 times a
-batch and K1 never, labels and confusion matrices agree with the unfused
-path up to the flipped pixels, a 1920×1080 batch launches K5 never, a small
-f32 batch agrees with the CPU's eval step, and eval throughput fused and
-unfused (phase 10).
+``Evaluator`` with a ``val_results.txt`` report: K2 (on tensor cores) and
+K5 launch 3 times a batch and K1 never, labels and confusion matrices agree
+with the unfused path up to the flipped pixels, a 1920×1080 batch launches
+K5 never, a small f32 batch agrees with the CPU's eval step, and eval
+throughput fused and unfused (phase 10).
 
 Any failure raises and exits non-zero; so does a machine without CUDA or a
 directory without the package. The last line is ``{"ok": true, "device":
@@ -98,35 +101,6 @@ def randomize_bn(model, gen) -> None:
                 m.running_var.copy_(torch.rand(c, generator=gen) + 1.0)
                 m.weight.copy_(torch.rand(c, generator=gen) * 0.3 + 0.5)
                 m.bias.copy_(torch.randn(c, generator=gen) * 0.1)
-
-
-def stem_phase(torch, stem, gen, dev):
-    """K2 vs ``stem_pool_reference`` on the card, f32 (TF32 off) and bf16.
-    Returns the bf16 max abs error over the headline levels."""
-    shapes = [(BATCH, HEIGHT, WIDTH), (BATCH, HEIGHT // 2, WIDTH // 2),
-              (BATCH, HEIGHT // 4, WIDTH // 4),
-              (BATCH, 270, 480),    # level 2 of 1920×1080: 135 conv rows → 68
-              (2, 37, 53)]          # small, odd
-    weight = (torch.randn(64, 3, 7, 7, generator=gen) * (2.0 / 147) ** 0.5).to(dev)
-    scale = (torch.rand(64, generator=gen) + 0.5).to(dev)
-    shift = (torch.randn(64, generator=gen) * 0.5).to(dev)
-    headline_err = 0.0
-    for i, (b, h, w) in enumerate(shapes):
-        x32 = torch.randn(b, h, w, 3, generator=gen).to(dev)
-        for dtype, rel_tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            x = x32.to(dtype)
-            got = stem.fused_stem_pool(x, weight, scale, shift)
-            ref = stem.stem_pool_reference(x, weight, scale, shift)
-            torch.cuda.synchronize()
-            check(got.shape == ref.shape, f"stem shape {tuple(got.shape)} vs {tuple(ref.shape)}")
-            err = (got.float() - ref.float()).abs().max().item()
-            bound = rel_tol * ref.float().abs().max().item()
-            log(f"  stem {str(dtype)[6:]:8s} {(b, h, w, 3)} -> {tuple(got.shape)}: "
-                f"max abs err {err:.3e} (tolerance {bound:.3e} = {rel_tol} x max|ref|)")
-            check(err <= bound, f"stem kernel disagrees at {(b, h, w)} {dtype}")
-            if dtype == torch.bfloat16 and i < 3:
-                headline_err = max(headline_err, err)
-    return headline_err
 
 
 def head_inputs(torch, gen, dev, b, h, w, c=19):
@@ -728,21 +702,27 @@ def eval_phase(torch, gen, dev):
     accum = init_eval_accum(cfg, device=dev)
     for fn in kernels.values():
         fn.launches = 0
+    stem.fused_stem_pool.tc_launches = stem.fused_stem_pool.cc_launches = 0
     preds_fused = []
     for i, batch in enumerate(batches):
         before = counts()
+        tc_before = stem.fused_stem_pool.tc_launches
         preds, accum = step(batch, accum)
         torch.cuda.synchronize()
         delta = {k: v - before[k] for k, v in counts().items()}
-        log(f"  batch {i}: launches {delta}")
+        tc = stem.fused_stem_pool.tc_launches - tc_before
+        log(f"  batch {i}: launches {delta}; tensor-core stem {tc}")
         check(delta == {"fused_stem_pool": 3, "fused_seghead_upsample_argmax": 0,
                         "fused_upsample_blend": 3},
               "each 2048x1024 eval batch must launch K2 3 times, K5 3 times and K1 never")
+        check(tc == 3, "each bf16 eval batch must take the tensor-core stem 3 times")
         check(preds.shape == (BATCH, HEIGHT, WIDTH) and preds.dtype == torch.int32
               and 0 <= preds.min().item() and preds.max().item() < 19, "eval preds")
         preds_fused.append(preds)
     eval_launches = counts()
-    log(f"  launches in 3 batches: {eval_launches}")
+    log(f"  launches in 3 batches: {eval_launches}; stem routes: tensor cores "
+        f"{stem.fused_stem_pool.tc_launches}, CUDA cores {stem.fused_stem_pool.cc_launches}")
+    check(stem.fused_stem_pool.cc_launches == 0, "the bf16 eval path took the CUDA-core stem")
     n_valid = sum(int((b["label"] < 19).sum().item()) for b in batches)
     check(accum["cm"].double().sum().item() == n_valid and accum["n_batches"].item() == 3
           and accum["cm_weather"].double().sum().item() == 3 * BATCH
@@ -869,6 +849,7 @@ def main() -> int:
     try:
         from doubly_contrastive_semseg_tpu_torch import Config, build_model, make_serving_fn
         from doubly_contrastive_semseg_tpu_torch.ops import _build, blend, contrastive, seghead, stem
+        from doubly_contrastive_semseg_tpu_torch.tools import profile_stem
         from doubly_contrastive_semseg_tpu_torch.train import (
             TrainState, build_optimizer, compute_loss, make_train_step)
     except ImportError as e:
@@ -886,9 +867,10 @@ def main() -> int:
     # 1. card and build
     log(f"== 1. card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    build_logs = _build.build(["stem_pool", "seghead", "contrastive", "blend"])
-    log(f"  built csrc/stem_pool.cu, csrc/seghead.cu, csrc/contrastive.cu and csrc/blend.cu "
-        f"for sm_90a in {time.perf_counter() - t0:.1f} s")
+    sources = ["stem_pool_tc", "stem_pool", "seghead", "contrastive", "blend"]
+    build_logs = _build.build(sources)
+    log(f"  built {', '.join(f'csrc/{n}.cu' for n in sources)} for sm_90a in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
@@ -896,8 +878,8 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
 
     # 2-3. each kernel against its plain version
-    log("== 2. stem kernel (K2) vs stem_pool_reference")
-    stem_err = stem_phase(torch, stem, gen, dev)
+    log("== 2. stem kernels (K2: bf16 tensor cores, f32 CUDA cores) vs stem_pool_reference")
+    stem_err = profile_stem.check_routes(gen, dev, log)
     log("== 3. head kernel (K1) vs seghead_reference")
     head_dis = head_phase(torch, seghead, gen, dev)
 
@@ -909,15 +891,20 @@ def main() -> int:
     serve = make_serving_fn(model, device=dev)
     image = torch.randint(0, 256, (BATCH, HEIGHT, WIDTH, 3), generator=gen).to(
         device=dev, dtype=torch.bfloat16)
-    stem.fused_stem_pool.launches = 0
+    for counter in ("launches", "tc_launches", "cc_launches"):
+        setattr(stem.fused_stem_pool, counter, 0)
     seghead.fused_seghead_upsample_argmax.launches = 0
     labels = serve(image)
     torch.cuda.synchronize()
     launches = {"fused_stem_pool": stem.fused_stem_pool.launches,
                 "fused_seghead_upsample_argmax": seghead.fused_seghead_upsample_argmax.launches}
-    log(f"  launches in one serve call: {launches}")
+    stem_routes = {"tensor cores": stem.fused_stem_pool.tc_launches,
+                   "CUDA cores": stem.fused_stem_pool.cc_launches}
+    log(f"  launches in one serve call: {launches}; stem routes {stem_routes}")
     check(launches == {"fused_stem_pool": 3, "fused_seghead_upsample_argmax": 1},
           "the serving path must launch the stem kernel 3 times and the head once")
+    check(stem_routes == {"tensor cores": 3, "CUDA cores": 0},
+          "the bf16 serving path must take the tensor-core stem 3 times")
     check(labels.shape == (BATCH, HEIGHT, WIDTH) and labels.dtype == torch.int8,
           f"labels {tuple(labels.shape)} {labels.dtype}")
     check(0 <= labels.min().item() and labels.max().item() < 19, "label range")
@@ -992,35 +979,16 @@ def main() -> int:
     # 5. kernel times at the headline shapes, beside the plain versions
     log("== 5. kernel times (bf16, headline shapes)")
     kernels = []
-    st = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0}
-    w_stem = model.net.feature_extractor.conv1.weight
-    for lv in range(3):
-        h, w = HEIGHT >> lv, WIDTH >> lv
-        x = torch.randn(BATCH, h, w, 3, generator=gen).to(dev, torch.bfloat16)
-        sc, sh = model.net.feature_extractor.bn1_0.folded()
-        k_ms = cuda_ms(lambda: stem.fused_stem_pool(x, w_stem, sc, sh))
-        p_ms = cuda_ms(lambda: stem.stem_pool_reference(x, w_stem, sc, sh))
-        hp, wp = stem.stem_output_hw(h, w)
-        hc, wc = (h - 1) // 2 + 1, (w - 1) // 2 + 1
-        nbytes = x.numel() * 2 + BATCH * hp * wp * 64 * 2
-        flops = 2.0 * BATCH * hc * wc * 64 * 147
-        log(f"  stem level {lv} {(BATCH, h, w, 3)}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-            f"bound {1e3 * max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_TENSOR_FLOPS):.4f} ms "
-            f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
-        st["ms"] += k_ms
-        st["plain_ms"] += p_ms
-        st["bytes"] += nbytes
-        st["flops"] += flops
-    stem_bound = 1e3 * max(st["bytes"] / PEAK_BYTES_PER_S, st["flops"] / PEAK_BF16_TENSOR_FLOPS)
+    sc, sh = model.net.feature_extractor.bn1_0.folded()
+    st = profile_stem.time_levels(gen, dev, model.net.feature_extractor.conv1.weight, sc, sh,
+                                  log)
     kernels.append({
         "name": "fused_stem_pool", "route": "cuda",
-        "source": "doubly_contrastive_semseg_tpu_torch/csrc/stem_pool.cu",
+        "source": "doubly_contrastive_semseg_tpu_torch/csrc/stem_pool_tc.cu",
         "replaces": "doubly_contrastive_semseg_tpu/ops/stem_pallas.py:123",
         "launches": launches["fused_stem_pool"], "max_abs_err": stem_err,
-        "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": stem_bound,
-        "bound_by": "bytes" if st["bytes"] / PEAK_BYTES_PER_S
-        > st["flops"] / PEAK_BF16_TENSOR_FLOPS else "operations",
-        "library_ms": None})
+        "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+        "bound_by": st["bound_by"], "library_ms": None})
 
     a = head_inputs(torch, gen, dev, BATCH, HEIGHT // 4, WIDTH // 4)
     a["feat"] = a["feat"].to(torch.bfloat16)

@@ -19,8 +19,9 @@
 // every weight and input read from shared memory feeds 8 or 9 FMAs), applies
 // scale/shift + ReLU into shared memory and max-pools from there. Conv
 // positions outside the image are written as 0: post-ReLU values are >= 0,
-// so a 0 in the pool window is the same as the pool's -inf padding. The
-// tensor-core (wgmma) form of this conv is left for later work.
+// so a 0 in the pool window is the same as the pool's -inf padding.
+// ops/stem.py launches it for f32 levels; bf16 levels take the tensor-core
+// kernel in stem_pool_tc.cu, and this one on bf16 is kept to time against.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

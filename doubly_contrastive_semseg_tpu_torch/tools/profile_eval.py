@@ -10,7 +10,8 @@ upsample-blend kernel on the decoder and once without, and prints for each:
   borders); here "head" is everything after the decoder: the seg head, the
   full-resolution logits, the argmax and the confusion matrices;
 - from ``torch.profiler``: device time by kernel, and the device's busy
-  and idle shares of the window.
+  and idle shares of the window;
+- frames/s over 3 unprofiled windows of ``ITERS`` batches.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 from .. import Config, build_model
 from ..train import init_eval_accum, make_eval_step
-from .profile_serving import stage_split
+from .profile_serving import frames_per_s, stage_split
 
 BATCH, HEIGHT, WIDTH = 8, 1024, 2048
 ITERS = 10
@@ -61,6 +62,9 @@ def main() -> None:
             run(batch["left"])
         torch.cuda.synchronize()
         name = "fused" if fused else "unfused"
+        fps = frames_per_s(run, batch["left"], BATCH)
+        print(f"{name}: {sum(fps) / len(fps):.2f} frames/s (windows of {ITERS} batches: "
+              f"{', '.join(f'{f:.2f}' for f in fps)})")
         split = stage_split(model, run, batch["left"], ITERS)
         total = sum(split.values())
         print(f"{name}: stage split, ms per eval batch of {BATCH} ({WIDTH}x{HEIGHT}, bf16; "

@@ -10,7 +10,9 @@ and prints, per batch:
   skip bottlenecks, all levels), the decoder (``upsample_blends1..5``), and
   the head (weather classifier + fused serving head);
 - from ``torch.profiler``: device time by kernel, and the device's busy and
-  idle shares of the serving window.
+  idle shares of the serving window;
+- frames/s over 3 unprofiled windows of ``ITERS`` in-order batches, each
+  closed by one synchronise (``bench.py``'s protocol).
 
 Hooks cost host time, so the stage split runs apart from the timed window.
 """
@@ -79,6 +81,20 @@ def stage_split(model, serve, image, iters: int):
     return {k: v / iters for k, v in totals.items()}
 
 
+def frames_per_s(run, image, batch: int, iters: int = ITERS, windows: int = 3):
+    """Frames/s of each of ``windows`` unprofiled windows of ``iters``
+    in-order calls of ``run(image)``, each window closed by a synchronise."""
+    fps = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run(image)
+        torch.cuda.synchronize()
+        fps.append(batch * iters / (time.perf_counter() - t0))
+    return fps
+
+
 def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -94,6 +110,9 @@ def main() -> None:
         serve(image)
     torch.cuda.synchronize()
 
+    fps = frames_per_s(serve, image, BATCH)
+    print(f"serving: {sum(fps) / len(fps):.2f} frames/s (windows of {ITERS} batches: "
+          f"{', '.join(f'{f:.2f}' for f in fps)})")
     split = stage_split(model, serve, image, ITERS)
     total = sum(split.values())
     print(f"stage split, ms per batch of {BATCH} "
