@@ -81,7 +81,7 @@ class WeatherNet(nn.Module):
         head (reference ``weathernet.py:76-85``)."""
         feat, additional = self.feature_extractor(image)
         feat0 = feat[:feat.shape[0] // 2] if return_supcon_feature else feat
-        seg_beforeup = _nhwc(self.segmentation(feat0)).float()
+        seg_beforeup = self.seg_logits(feat0)
         return {
             "seg": resize_bilinear(seg_beforeup, tuple(image.shape[1:3])),
             "seg_beforeup": seg_beforeup,
@@ -89,6 +89,11 @@ class WeatherNet(nn.Module):
             "fine_feat0": _nhwc(feat0),
             "skips_0": _nhwc(additional["skips_0"]),
         }
+
+    def seg_logits(self, feat: torch.Tensor) -> torch.Tensor:
+        """The seg head's (B, h, w, classes) float32 logits of the decoder
+        features (B, 128, h, w)."""
+        return _nhwc(self.segmentation(feat)).float()
 
 
 class DCSSModel(nn.Module):
@@ -124,15 +129,6 @@ class DCSSModel(nn.Module):
             out["supcon_proj"] = self.projection(
                 torch.stack([pooled[:bsz], pooled[bsz:]], dim=1))  # (B, 2, 128)
         return out
-
-    def forward_features(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The forward up to the decoder features and the weather logits,
-        without the seg head and its full-resolution logits (the serving
-        path reads the features; jit drops the rest as dead code in JAX)."""
-        feat, _ = self.net.feature_extractor(image)
-        fine_feat = _nhwc(feat)
-        return {"fine_feat": fine_feat,
-                "weather_logits": self.weather_clf(fine_feat)}
 
 
 def build_model(cfg, device="cuda", seed: int = 0) -> DCSSModel:

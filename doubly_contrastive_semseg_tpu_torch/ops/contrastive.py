@@ -1,13 +1,19 @@
 """Row-L2-normalised contrastive losses that never hold the N×N logits.
 
-Port of the JAX package's ``ops/contrastive_pallas.py``: the TPU kernels
+Port of the JAX package's ``ops/contrastive_pallas.py``. The TPU kernel
 ``contrastive_row_stats`` (K3: ``_max_kernel``, ``_norm_kernel``,
-``_sums_kernel``) and the fourth sweep of ``pixel_contrast_loss_pallas``
-(K4: ``_pc_kernel``) become one CUDA kernel, ``csrc/contrastive.cu``, one
-sweep a launch; its note names the bound (operations) and the design. A
-tensor on the CPU takes the plain versions, ``contrastive_row_stats_reference``
-and ``pixel_contrast_sweep_reference`` (dense N×N, same masks and clamps);
-a CUDA tensor launches the kernel or raises.
+``_sums_kernel``) becomes ``csrc/row_stats.cu``: two passes over the
+symmetric half of the logits on split-TF32 tensor cores, each followed by a
+reduce launch. The fourth sweep of ``pixel_contrast_loss_pallas`` (K4:
+``_pc_kernel``) is sweep 4 of ``csrc/contrastive.cu``, whose sweeps 0–3 (the
+first port of K3) stay reachable only through ``_three_sweep_row_stats``
+for the tools that time the two routes side by side. Each source's note
+names its bound (operations) and its design. A tensor on the CPU takes the
+plain versions, ``contrastive_row_stats_reference`` and
+``pixel_contrast_sweep_reference`` (dense N×N, same masks and clamps); a
+CUDA tensor launches the kernel or raises. ``row_stats_tiled`` repeats the
+new kernel's arithmetic in plain PyTorch (split-TF32 products, pass A's
+partials merged by the exact shift), so the CPU tests hold the algorithm.
 
 Over L = Z Zᵀ/τ with l̂_ij = (l_ij − m_i)/n_i on valid pairs, the sweeps give
 the row max m, the row norm n = max(‖l − m‖₂, 1e-12) over valid columns,
@@ -37,7 +43,10 @@ NEG_BIG = -1e30
 MAX_D = 256
 BWD_CHUNK = 256  # rows a backward slab holds; live memory ≈ a few × chunk·N f32
 
+ROW_TILE = 128   # rows and columns of a tile of csrc/row_stats.cu
+
 _SWEEP_MAX, _SWEEP_NORM, _SWEEP_SUMS, _SWEEP_SUMS_NEG, _SWEEP_POS = range(5)
+_PASS_A, _REDUCE_A, _PASS_B, _REDUCE_B = range(4)
 
 
 def _pair_masks(labels_r, valid_r, rows, labels, valid):
@@ -119,29 +128,59 @@ def _sweep(lib, sweep, z, labels, valid, temperature, stats, n_out, what):
     return outs
 
 
+def row_stats_scratch_numel(n: int) -> int:
+    """f32 elements of ``csrc/row_stats.cu``'s scratch: 4 fields of each
+    (column tile, row) partial."""
+    return 4 * -(-n // ROW_TILE) * n
+
+
 def contrastive_row_stats(z, labels, valid, temperature: float = 0.07,
                           neg_mode: bool = False):
     """K3: (p, c, s, m, n), each (N,) float32, for z (N, D) float32, int
-    labels (N,) and bool validity (N,), by three sweeps that recompute the
-    logits tile by tile. Counts each launch (three a call) in
+    labels (N,) and bool validity (N,): pass A (m, n), its reduce, pass B
+    (s, p, c), its reduce. Counts each of the four launches in
     ``contrastive_row_stats.launches``."""
     if z.device.type == "cpu":
         return contrastive_row_stats_reference(z, labels, valid, temperature, neg_mode)
     z, labels, valid = _kernel_inputs(z, labels, valid)
-    lib = _lib()
-    (m,) = _sweep(lib, _SWEEP_MAX, z, labels, valid, temperature,
-                  (None, None, None), 1, "contrastive_row_stats (max)")
-    contrastive_row_stats.launches += 1
-    (n,) = _sweep(lib, _SWEEP_NORM, z, labels, valid, temperature,
-                  (m, None, None), 1, "contrastive_row_stats (norm)")
-    contrastive_row_stats.launches += 1
-    s, p, c = _sweep(lib, _SWEEP_SUMS_NEG if neg_mode else _SWEEP_SUMS, z, labels,
-                     valid, temperature, (m, n, None), 3, "contrastive_row_stats (sums)")
-    contrastive_row_stats.launches += 1
-    return p, c, s, m, n
+    lib = _row_stats_lib()
+    n = z.shape[0]
+    f32 = dict(dtype=torch.float32, device=z.device)
+    scratch = torch.empty(row_stats_scratch_numel(n), **f32)
+    m, nrm, s, p, c = (torch.empty(n, **f32) for _ in range(5))
+    steps = ((_PASS_A, (None, None), (None, None, None), "pass A"),
+             (_REDUCE_A, (None, None), (m, nrm, None), "reduce A"),
+             (_PASS_B, (m, nrm), (None, None, None), "pass B"),
+             (_REDUCE_B, (None, None), (s, p, c), "reduce B"))
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream(z.device).cuda_stream
+        for step, ins, outs, what in steps:
+            ptrs = [None if t is None else t.data_ptr() for t in (*ins, scratch, *outs)]
+            status = lib.dcss_row_stats(
+                step, z.data_ptr(), labels.data_ptr(), valid.data_ptr(), n, z.shape[1],
+                1.0 / temperature, int(neg_mode), *ptrs, stream)
+            _build.check(lib, status, f"contrastive_row_stats ({what})")
+            contrastive_row_stats.launches += 1
+    return p, c, s, m, nrm
 
 
 contrastive_row_stats.launches = 0
+
+
+def _three_sweep_row_stats(z, labels, valid, temperature: float = 0.07,
+                           neg_mode: bool = False):
+    """K3's first port, sweeps 0–3 of ``csrc/contrastive.cu`` (each
+    recomputes every logit on CUDA cores), on a CUDA tensor: the yardstick
+    the tools time the two-pass kernel against. No public path calls it."""
+    z, labels, valid = _kernel_inputs(z, labels, valid)
+    lib = _lib()
+    (m,) = _sweep(lib, _SWEEP_MAX, z, labels, valid, temperature,
+                  (None, None, None), 1, "three-sweep row stats (max)")
+    (n,) = _sweep(lib, _SWEEP_NORM, z, labels, valid, temperature,
+                  (m, None, None), 1, "three-sweep row stats (norm)")
+    s, p, c = _sweep(lib, _SWEEP_SUMS_NEG if neg_mode else _SWEEP_SUMS, z, labels,
+                     valid, temperature, (m, n, None), 3, "three-sweep row stats (sums)")
+    return p, c, s, m, n
 
 
 def pixel_contrast_pos_sweep(z, labels, valid, m, n, s, temperature: float = 0.07):
@@ -172,6 +211,87 @@ def _lib() -> ctypes.CDLL:
                        + [ctypes.c_float] + [ctypes.c_void_p] * 7)
         fn.restype = ctypes.c_int
     return lib
+
+
+def _row_stats_lib() -> ctypes.CDLL:
+    lib = _build.load("row_stats")
+    fn = lib.dcss_row_stats
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                       + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 7)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+# ---- csrc/row_stats.cu's arithmetic in plain PyTorch ------------------------
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 stored mantissa bits), to nearest
+    with ties away from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ bᵀ as the kernel forms it on TF32 tensor cores: each operand
+    split as hi = tf32(x), lo = tf32(x − hi), and lo·hi + hi·lo + hi·hi
+    (lo·lo dropped). Each TF32 product is exact in f32; the sums are f32."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_round(a.float() - a_hi), tf32_round(b.float() - b_hi)
+    return (a_lo @ b_hi.t() + a_hi @ b_lo.t()) + a_hi @ b_hi.t()
+
+
+def merge_row_partials(m, s1, s2, k):
+    """(m, n) of each row from its (T, N) pass-A partials, one a column
+    tile: the tile's row max m_t, S1 = Σ(l − m_t), S2 = Σ(l − m_t)², k =
+    #valid. Merged in tile order by the exact shift, as the reduce launch
+    does: S2 += 2δS1 + kδ², S1 += kδ for δ = m_old − m_new ≤ 0; a partial
+    with k = 0 is skipped."""
+    big = torch.full_like(m[0], NEG_BIG)
+    acc_m, acc_s1, acc_s2, acc_k = big, torch.zeros_like(big), torch.zeros_like(big), \
+        torch.zeros_like(big)
+    for mb, s1b, s2b, kb in zip(m, s1, s2, k):
+        mn = torch.maximum(acc_m, mb)
+        da, db = acc_m - mn, mb - mn
+        both = (kb > 0) & (acc_k > 0)
+        first = (kb > 0) & (acc_k == 0)
+        # a skipped partial's δ² may overflow: where() drops those lanes
+        m2 = (acc_s2 + da * (2 * acc_s1 + acc_k * da)) + (s2b + db * (2 * s1b + kb * db))
+        m1 = (acc_s1 + acc_k * da) + (s1b + kb * db)
+        acc_s2 = torch.where(both, m2, torch.where(first, s2b, acc_s2))
+        acc_s1 = torch.where(both, m1, torch.where(first, s1b, acc_s1))
+        acc_m = torch.where(both, mn, torch.where(first, mb, acc_m))
+        acc_k = acc_k + kb
+    return torch.where(acc_k > 0, acc_m, big), torch.sqrt(acc_s2).clamp_min(1e-12)
+
+
+def row_stats_tiled(z, labels, valid, temperature: float = 0.07, neg_mode: bool = False,
+                    tile: int = ROW_TILE):
+    """K3's (p, c, s, m, n) by the kernel's arithmetic: split-TF32 logits;
+    pass A's partials of each column tile merged in tile order
+    (``merge_row_partials``); pass B's s, p, c summed tile by tile in tile
+    order, with l̂ = (l − m)·(1/n). Which block of the symmetric schedule
+    computes a (row, column tile) partial does not change it, so one
+    row-major walk gives the same partials."""
+    z = z.float()
+    labels, valid = labels.to(torch.int32), valid.bool()
+    rows = torch.arange(z.shape[0], device=z.device)
+    vpair, same, pos, not_self = _pair_masks(labels, valid, rows, labels, valid)
+    logits = split_tf32_matmul(z, z) * (1.0 / temperature)
+    parts = []
+    for t0 in range(0, z.shape[0], tile):
+        l, v = logits[:, t0:t0 + tile], vpair[:, t0:t0 + tile]
+        mt = torch.where(v, l, NEG_BIG).amax(dim=1)
+        d = torch.where(v, l - mt[:, None], 0.0)
+        parts.append((mt, d.sum(dim=1), (d * d).sum(dim=1), v.sum(dim=1).float()))
+    m, n = merge_row_partials(*(torch.stack(f) for f in zip(*parts)))
+    lhat = torch.where(vpair, (logits - m[:, None]) * (1.0 / n)[:, None], 0.0)
+    den = (vpair & ~same) if neg_mode else (vpair & not_self)
+    terms = (torch.where(den, torch.exp(lhat), 0.0), torch.where(pos, lhat, 0.0),
+             pos.float())
+    s, p, c = (sum(t[:, t0:t0 + tile].sum(dim=1) for t0 in range(0, z.shape[0], tile))
+               for t in terms)
+    return p, c, s, m, n
 
 
 # ---- backward: chunked dZ = (G + Gᵀ) Z / τ --------------------------------

@@ -35,10 +35,36 @@ def build_pyramid(image: torch.Tensor, levels: int,
     """Normalised pyramid [x, x/2, x/4, ...] of dense contiguous NHWC levels,
     each computed directly from the full image. Normalisation and bicubic
     run in float32 and each level is then cast to ``dtype`` (the JAX side also
-    accumulates its pyramid convolutions in float32)."""
+    accumulates its pyramid convolutions in float32). Each level has the
+    size the JAX model's space-to-depth(2) pyramid (``fused_pyramid_s2d``)
+    gives it, ``pyramid_hw``; where that is larger than the bicubic level,
+    the extra row or column is the bicubic formula read with the border
+    clamped, as JAX's clamp padding gives it."""
     xn = normalize(image)
-    return [downsample_bicubic_direct(xn, lv).contiguous().to(dtype)
-            for lv in range(levels)]
+    out = []
+    for lv in range(levels):
+        hh, ww = pyramid_hw(image.shape[1], image.shape[2], lv)
+        pad_h, pad_w = max(0, (hh << lv) - xn.shape[1]), max(0, (ww << lv) - xn.shape[2])
+        x = xn
+        if pad_h or pad_w:   # replicated pixels: taps past the border read it
+            x = F.pad(xn.permute(0, 3, 1, 2), (0, pad_w, 0, pad_h),
+                      mode="replicate").permute(0, 2, 3, 1)
+        out.append(downsample_bicubic_direct(x, lv)[:, :hh, :ww].contiguous().to(dtype))
+    return out
+
+
+def pyramid_hw(h: int, w: int, level: int) -> Tuple[int, int]:
+    """(height, width) of pyramid level ``level`` of an (h, w) image in the
+    JAX model, whose levels are s2d(2) cells built from the h/2 × w/2 cells
+    of level 0: level 1 has ⌈(h/2)/2⌉ cells (its convolution reads clamp
+    padding), level L ≥ 2 has ⌊(h/2)/2^L⌋ (no padding). Two pixels a cell;
+    equal to ⌊h/2^L⌋ whenever h is a multiple of 2^(L+1)."""
+    h2, w2 = h // 2, w // 2
+    if level == 0:
+        return 2 * h2, 2 * w2
+    if level == 1:
+        return 2 * -(-h2 // 2), 2 * -(-w2 // 2)
+    return 2 * (h2 >> level), 2 * (w2 >> level)
 
 
 def upsample4x_argmax(logits: torch.Tensor) -> torch.Tensor:

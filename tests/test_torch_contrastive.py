@@ -8,6 +8,10 @@ custom VJPs) and through the port on the CPU, where each wrapper takes its
 plain version and the custom backward (``dz_via_chunks``) runs as on the
 card. N is not a multiple of 128 and some rows are invalid. Tolerances:
 values rtol 1e-5 (the sums run in another order); gradients 1e-4 × max|g|.
+The CUDA row-stats kernel cannot run here, so its arithmetic is held in
+plain PyTorch (``row_stats_tiled``: split-TF32 products, per-tile partials
+merged by the exact shift) against the plain version and the Pallas
+kernels, with c and invalid rows' m exact.
 """
 
 import numpy as np
@@ -145,6 +149,108 @@ def test_kernel_losses_match_dense_port_losses(rng):
         _close(res[0][0], res[1][0], what="loss")
         np.testing.assert_allclose(res[0][1], res[1][1], rtol=0,
                                    atol=1e-4 * np.abs(res[1][1]).max())
+
+
+def _check_stats(got, want, valid):
+    """(p, c, s, m, n) against (p, c, s, m, n): c and invalid rows' m
+    exact, the rest rtol 1e-5 of the largest |want|."""
+    for name, g, w in zip("pcsmn", got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        if name == "c":
+            np.testing.assert_array_equal(g, w)
+        elif name == "m":
+            np.testing.assert_array_equal(g[~valid], w[~valid])
+            if valid.any():
+                _close(g[valid], w[valid], what=name)
+        else:
+            _close(g, w, what=name)
+
+
+@pytest.mark.parametrize("n,d", [(200, 64), (200, 128), (300, 64), (300, 128)])
+@pytest.mark.parametrize("neg_mode", [False, True])
+def test_row_stats_tiled_matches_reference_and_pallas(rng, n, d, neg_mode):
+    """The two-pass kernel's arithmetic (split-TF32 logits, pass-A partials
+    of 128-column tiles merged by the exact shift, pass-B sums tile by
+    tile) against the dense plain version and the Pallas kernels. Row 0 is
+    invalid, so its every pair is."""
+    z, labels, valid = _inputs(rng, n, d, 4 if not neg_mode else 19)
+    valid[0] = False
+    zt, lt, vt = torch.from_numpy(z), torch.from_numpy(labels), torch.from_numpy(valid)
+    got = [t.numpy() for t in cp.row_stats_tiled(zt, lt, vt, neg_mode=neg_mode)]
+    ref = cp.contrastive_row_stats_reference(zt, lt, vt, neg_mode=neg_mode)
+    _check_stats(got, [t.numpy() for t in ref], valid)
+    want = jcp.contrastive_row_stats(jnp.asarray(z), jnp.asarray(labels), jnp.asarray(valid),
+                                     neg_mode=neg_mode, interpret=True)
+    _check_stats(got, want, valid)
+    assert got[3][0] == np.float32(cp.NEG_BIG) and got[4][0] == np.float32(1e-12)
+
+
+@pytest.mark.parametrize("neg_mode", [False, True])
+def test_row_stats_tiled_single_valid_row(rng, neg_mode):
+    """One valid row, in the second column tile: its only valid column is
+    itself, so m = l_ii, n is clamped at 1e-12 and s, p, c are 0; every
+    other row is invalid (m = -1e30 exactly)."""
+    z, labels, _ = _inputs(rng, 200, 64, 19)
+    valid = np.zeros(200, bool)
+    valid[150] = True
+    zt, lt, vt = torch.from_numpy(z), torch.from_numpy(labels), torch.from_numpy(valid)
+    got = [t.numpy() for t in cp.row_stats_tiled(zt, lt, vt, neg_mode=neg_mode)]
+    _check_stats(got, [t.numpy() for t in cp.contrastive_row_stats_reference(
+        zt, lt, vt, neg_mode=neg_mode)], valid)
+    _check_stats(got, jcp.contrastive_row_stats(jnp.asarray(z), jnp.asarray(labels),
+                                                jnp.asarray(valid), neg_mode=neg_mode,
+                                                interpret=True), valid)
+    assert got[4][150] == np.float32(1e-12)
+    assert got[0][150] == got[1][150] == got[2][150] == 0.0
+
+
+def test_merge_row_partials_matches_direct(rng):
+    """Per-tile (m, S1, S2, k) merged in tile order by the exact shift equal
+    the max and the norm about it over all valid columns; tiles with no
+    valid column (m = -1e30) are skipped without overflow."""
+    n, tiles, width = 50, 6, 16
+    vals = torch.from_numpy((rng.standard_normal((n, tiles * width)) * 14).astype(np.float32))
+    mask = torch.from_numpy(rng.uniform(size=(n, tiles * width)) < 0.6)
+    mask[3] = False                     # a row with no valid column
+    mask[4, width:] = False             # only its first tile is valid
+    mask[5, : 5 * width] = False        # only its last tile
+    mask[6] = False
+    mask[6, 2 * width + 3] = True       # one valid column
+    parts = []
+    for t in range(tiles):
+        v, l = mask[:, t * width:(t + 1) * width], vals[:, t * width:(t + 1) * width]
+        mt = torch.where(v, l, cp.NEG_BIG).amax(dim=1)
+        dd = torch.where(v, l - mt[:, None], 0.0)
+        parts.append((mt, dd.sum(1), (dd * dd).sum(1), v.sum(1).float()))
+    m, nrm = cp.merge_row_partials(*(torch.stack(f) for f in zip(*parts)))
+    want_m = torch.where(mask, vals, cp.NEG_BIG).amax(dim=1)
+    dd = torch.where(mask, vals.double() - want_m.double()[:, None], 0.0)
+    want_n = torch.sqrt((dd * dd).sum(1)).clamp_min(1e-12)
+    assert torch.equal(m, want_m)
+    assert m[3] == np.float32(cp.NEG_BIG) and nrm[3] == np.float32(1e-12)
+    assert nrm[6] == np.float32(1e-12) and torch.isfinite(nrm).all()
+    _close(nrm.numpy(), want_n.numpy(), what="n")
+
+
+def test_split_tf32_products():
+    """TF32 rounding is to nearest with ties away from zero on 10 stored
+    mantissa bits; the three-product split is as accurate as f32 where one
+    TF32 product is not."""
+    half_ulp = 1.0 + 2.0 ** -11          # halfway between two TF32 values
+    x = torch.tensor([half_ulp, -half_ulp, 1.0 + 2.0 ** -12, 3.0], dtype=torch.float32)
+    np.testing.assert_array_equal(cp.tf32_round(x).numpy(),
+                                  np.float32([1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0, 3.0]))
+    rng = np.random.default_rng(1)
+    a = (rng.standard_normal((64, 128)) / np.sqrt(128)).astype(np.float32)
+    b = (rng.standard_normal((96, 128)) / np.sqrt(128)).astype(np.float32)
+    exact = a.astype(np.float64) @ b.astype(np.float64).T
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    scale = np.abs(exact).max()
+    err3 = np.abs(cp.split_tf32_matmul(at, bt).double().numpy() - exact).max() / scale
+    err1 = np.abs((cp.tf32_round(at) @ cp.tf32_round(bt).t()).double().numpy()
+                  - exact).max() / scale
+    err_f32 = np.abs((at @ bt.t()).double().numpy() - exact).max() / scale
+    assert err3 <= 4 * err_f32 + 1e-7 and err1 > 30 * err3
 
 
 def test_kernel_wrappers_refuse_bad_shapes():

@@ -42,8 +42,39 @@ def test_serving_matches_full_forward_argmax(rng):
     with torch.no_grad():
         want = model(x)["seg"].argmax(-1)
     assert (serve(x).long() == want).float().mean() >= 0.999
-    with pytest.raises(ValueError, match="multiple of 4"):
-        serve(x[:, :122])  # the ×4 head cannot make 122 rows
+    # 122 rows: the ×4 head would make 124, so the full-resolution argmax
+    got = serve(x[:, :122])
+    with torch.no_grad():
+        want = model(x[:, :122])["seg"].argmax(-1)
+    assert got.shape == (1, 122, 128) and got.dtype == torch.int8
+    assert torch.equal(got.long(), want)
+
+
+def test_serving_size_not_multiple_of_4_matches_jax(rng):
+    """(1, 126, 250): 4 × the features is 128 × 252, so both take the
+    argmax of the full-resolution logits."""
+    shape = (1, 126, 250, 3)
+    jmodel, params, stats = jax_variables(rng, shape)
+    x = rng.uniform(0, 255, shape).astype(np.float32)
+    want = np.asarray(jax_make_serving_fn(jmodel)(
+        {"params": params, "batch_stats": stats}, jnp.asarray(x)))
+    got = make_serving_fn(port_model(params, stats), device="cpu")(x).numpy()
+    assert got.shape == want.shape == shape[:3] and got.dtype == np.int8
+    assert (got == want.astype(np.int8)).mean() >= 0.999
+
+
+def test_serving_without_fused_head(rng):
+    """``use_fused_head=False`` takes the ×4 upsample-argmax of the seg
+    logits: the argmax of the model's own ``seg``."""
+    model = build_model(Config(compute_dtype="float32"), device="cpu", seed=3)
+    x = torch.from_numpy(rng.uniform(0, 255, (1, 128, 256, 3)).astype(np.float32))
+    counts = (fused_stem_pool.launches, fused_seghead_upsample_argmax.launches)
+    got = make_serving_fn(model, device="cpu", use_fused_head=False)(x)
+    assert counts == (fused_stem_pool.launches, fused_seghead_upsample_argmax.launches)
+    with torch.no_grad():
+        want = model(x)["seg"].argmax(-1)
+    assert got.shape == (1, 128, 256) and got.dtype == torch.int8
+    assert torch.equal(got.long(), want)
 
 
 def test_entry_points_default_to_cuda():
