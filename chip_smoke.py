@@ -5,13 +5,15 @@
 
 Builds the port's CUDA kernels from ``doubly_contrastive_semseg_tpu_torch/
 csrc`` for sm_90a, holds each kernel against its plain PyTorch version on the
-card (the stem on both routes, bf16 tensor cores and f32 CUDA cores, through
-``tools/profile_stem.py``, which also times it in phase 5 beside the
-CUDA-core kernel on the same bf16 inputs), then serves SwiftNet-RN18 (full
+card (the stem and the seg head each on both routes, bf16 tensor cores and
+f32 CUDA cores, through ``tools/profile_stem.py`` and
+``tools/profile_seghead.py``, which also time them in phase 5 beside the
+CUDA-core kernels on the same bf16 inputs), then serves SwiftNet-RN18 (full
 width: 3 pyramid levels, 128 decoder features, 19 classes) at 2048×1024,
 batch 8, bf16 through ``build_model`` and ``make_serving_fn``, with weights
 and BN statistics drawn from a fixed seed. It checks that the serving path
-launched each kernel (the stem 3 times, on its tensor-core route), that its
+launched each kernel (the stem 3 times and the head once, each on its
+tensor-core route), that its
 labels agree with the plain path on the card and, on a small input, with
 the CPU path (which the CPU tests hold against the JAX package), serves two
 sizes the fused head does not (1022×2046 bf16: no K1 launch; 254×510 f32
@@ -55,7 +57,6 @@ import time
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_TENSOR_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
 
 BATCH, HEIGHT, WIDTH = 8, 1024, 2048
 CRITERION = "supcon_pixelcontrast_focal"
@@ -104,50 +105,6 @@ def randomize_bn(model, gen) -> None:
                 m.running_var.copy_(torch.rand(c, generator=gen) + 1.0)
                 m.weight.copy_(torch.rand(c, generator=gen) * 0.3 + 0.5)
                 m.bias.copy_(torch.randn(c, generator=gen) * 0.1)
-
-
-def head_inputs(torch, gen, dev, b, h, w, c=19):
-    return dict(feat=torch.randn(b, h, w, 128, generator=gen).to(dev),
-                bn_scale=(torch.rand(128, generator=gen) + 0.5).to(dev),
-                bn_bias=torch.randn(128, generator=gen).to(dev),
-                bn_mean=torch.randn(128, generator=gen).to(dev),
-                bn_var=(torch.rand(128, generator=gen) * 1.5 + 0.5).to(dev),
-                conv_weight=torch.randn(c, 128, 1, 1, generator=gen).to(dev) * 0.1,
-                conv_bias=torch.randn(c, generator=gen).to(dev))
-
-
-def head_phase(torch, seghead, gen, dev):
-    """K1 vs ``seghead_reference`` on the card. Returns the bf16 headline
-    share of labels that differ (the kernel's output is a label, so this is
-    its error)."""
-    headline_dis = 0.0
-    for b, h, w in [(BATCH, HEIGHT // 4, WIDTH // 4), (BATCH, 270, 480), (3, 13, 29)]:
-        args = head_inputs(torch, gen, dev, b, h, w)
-        for dtype, bar in ((torch.float32, 0.9999), (torch.bfloat16, 0.995)):
-            a = dict(args, feat=args["feat"].to(dtype))
-            got = seghead.fused_seghead_upsample_argmax(**a)
-            ref = seghead.seghead_reference(**a)
-            torch.cuda.synchronize()
-            check(got.shape == (b, 4 * h, 4 * w) and got.dtype == torch.int8,
-                  f"head output {tuple(got.shape)} {got.dtype}")
-            agree = (got == ref).double().mean().item()
-            log(f"  head {str(dtype)[6:]:8s} {(b, h, w, 128)} -> {tuple(got.shape)}: "
-                f"label agreement {agree:.6f} (bar {bar})")
-            check(agree >= bar, f"head kernel disagrees at {(b, h, w)} {dtype}")
-            if dtype == torch.bfloat16 and h == HEIGHT // 4:
-                headline_dis = 1.0 - agree
-    # every logit negative: a class outside [0, C) must never win. At -1000
-    # an f32 logit keeps only ~6e-5 of resolution, so near-ties flip more
-    # often than at the shapes above: bar 0.999
-    a = head_inputs(torch, gen, dev, 2, 16, 24)
-    a["conv_bias"] = torch.full((19,), -1000.0, device=dev)
-    got = seghead.fused_seghead_upsample_argmax(**a)
-    ref = seghead.seghead_reference(**a)
-    agree = (got == ref).double().mean().item()
-    log(f"  head all-negative logits: max label {got.max().item()}, agreement {agree:.6f}")
-    check(got.max().item() < 19 and got.min().item() >= 0 and agree >= 0.999,
-          "head kernel with negative logits")
-    return headline_dis
 
 
 def contrastive_phase(torch, contrastive, profile_contrastive, gen, dev):
@@ -780,7 +737,8 @@ def main() -> int:
     try:
         from doubly_contrastive_semseg_tpu_torch import Config, build_model, make_serving_fn
         from doubly_contrastive_semseg_tpu_torch.ops import _build, blend, contrastive, seghead, stem
-        from doubly_contrastive_semseg_tpu_torch.tools import profile_contrastive, profile_stem
+        from doubly_contrastive_semseg_tpu_torch.tools import (
+            profile_contrastive, profile_seghead, profile_stem)
         from doubly_contrastive_semseg_tpu_torch.train import (
             TrainState, build_optimizer, compute_loss, make_train_step)
     except ImportError as e:
@@ -798,7 +756,8 @@ def main() -> int:
     # 1. card and build
     log(f"== 1. card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    sources = ["stem_pool_tc", "stem_pool", "seghead", "row_stats", "contrastive", "blend"]
+    sources = ["stem_pool_tc", "stem_pool", "seghead_tc", "seghead", "row_stats", "contrastive",
+               "blend"]
     build_logs = _build.build(sources)
     log(f"  built {', '.join(f'csrc/{n}.cu' for n in sources)} for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -811,8 +770,8 @@ def main() -> int:
     # 2-3. each kernel against its plain version
     log("== 2. stem kernels (K2: bf16 tensor cores, f32 CUDA cores) vs stem_pool_reference")
     stem_err = profile_stem.check_routes(gen, dev, log)
-    log("== 3. head kernel (K1) vs seghead_reference")
-    head_dis = head_phase(torch, seghead, gen, dev)
+    log("== 3. head kernels (K1: bf16 tensor cores, f32 CUDA cores) vs seghead_reference")
+    head_dis = profile_seghead.check_routes(gen, dev, log)
 
     # 4. the serving path at full width
     log(f"== 4. serving SwiftNet-RN18 {WIDTH}x{HEIGHT} batch {BATCH} bf16")
@@ -822,20 +781,23 @@ def main() -> int:
     serve = make_serving_fn(model, device=dev)
     image = torch.randint(0, 256, (BATCH, HEIGHT, WIDTH, 3), generator=gen).to(
         device=dev, dtype=torch.bfloat16)
+    head_fn = seghead.fused_seghead_upsample_argmax
     for counter in ("launches", "tc_launches", "cc_launches"):
         setattr(stem.fused_stem_pool, counter, 0)
-    seghead.fused_seghead_upsample_argmax.launches = 0
+        setattr(head_fn, counter, 0)
     labels = serve(image)
     torch.cuda.synchronize()
     launches = {"fused_stem_pool": stem.fused_stem_pool.launches,
-                "fused_seghead_upsample_argmax": seghead.fused_seghead_upsample_argmax.launches}
-    stem_routes = {"tensor cores": stem.fused_stem_pool.tc_launches,
-                   "CUDA cores": stem.fused_stem_pool.cc_launches}
-    log(f"  launches in one serve call: {launches}; stem routes {stem_routes}")
+                "fused_seghead_upsample_argmax": head_fn.launches}
+    routes = {"stem": {"tensor cores": stem.fused_stem_pool.tc_launches,
+                       "CUDA cores": stem.fused_stem_pool.cc_launches},
+              "head": {"tensor cores": head_fn.tc_launches, "CUDA cores": head_fn.cc_launches}}
+    log(f"  launches in one serve call: {launches}; routes {routes}")
     check(launches == {"fused_stem_pool": 3, "fused_seghead_upsample_argmax": 1},
           "the serving path must launch the stem kernel 3 times and the head once")
-    check(stem_routes == {"tensor cores": 3, "CUDA cores": 0},
-          "the bf16 serving path must take the tensor-core stem 3 times")
+    check(routes == {"stem": {"tensor cores": 3, "CUDA cores": 0},
+                     "head": {"tensor cores": 1, "CUDA cores": 0}},
+          "the bf16 serving path must take the tensor-core stem 3 times and head once")
     check(labels.shape == (BATCH, HEIGHT, WIDTH) and labels.dtype == torch.int8,
           f"labels {tuple(labels.shape)} {labels.dtype}")
     check(0 <= labels.min().item() and labels.max().item() < 19, "label range")
@@ -943,28 +905,16 @@ def main() -> int:
         "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
         "bound_by": st["bound_by"], "library_ms": None})
 
-    a = head_inputs(torch, gen, dev, BATCH, HEIGHT // 4, WIDTH // 4)
-    a["feat"] = a["feat"].to(torch.bfloat16)
-    k_ms = cuda_ms(lambda: seghead.fused_seghead_upsample_argmax(**a))
-    p_ms = cuda_ms(lambda: seghead.seghead_reference(**a))
-    n_pix = BATCH * (HEIGHT // 4) * (WIDTH // 4)
-    nbytes = n_pix * 128 * 2 + BATCH * HEIGHT * WIDTH
-    # bf16 contraction on tensor cores + f32 bilinear blend (6 flops a class
-    # and output pixel) on CUDA cores
-    ops_s = (2.0 * n_pix * 128 * 19 / PEAK_BF16_TENSOR_FLOPS
-             + 6.0 * BATCH * HEIGHT * WIDTH * 19 / PEAK_F32_FLOPS)
-    head_bound = 1e3 * max(nbytes / PEAK_BYTES_PER_S, ops_s)
-    log(f"  head {(BATCH, HEIGHT // 4, WIDTH // 4, 128)}: kernel {k_ms:.3f} ms, "
-        f"plain {p_ms:.3f} ms, bound {head_bound:.4f} ms ({nbytes / 1e6:.1f} MB)")
+    ht = profile_seghead.time_head(gen, dev, log)
+    check(ht["ms"] < ht["cc_ms"], "the tensor-core head is not faster than the CUDA-core "
+          "head on the same bf16 inputs")
     kernels.append({
         "name": "fused_seghead_upsample_argmax", "route": "cuda",
-        "source": "doubly_contrastive_semseg_tpu_torch/csrc/seghead.cu",
+        "source": "doubly_contrastive_semseg_tpu_torch/csrc/seghead_tc.cu",
         "replaces": "doubly_contrastive_semseg_tpu/ops/seghead_pallas.py:164",
         "launches": launches["fused_seghead_upsample_argmax"],
-        "max_abs_err": head_dis, "ms": k_ms, "plain_ms": p_ms,
-        "bound_ms": head_bound,
-        "bound_by": "bytes" if nbytes / PEAK_BYTES_PER_S > ops_s else "operations",
-        "library_ms": None})
+        "max_abs_err": head_dis, "ms": ht["ms"], "plain_ms": ht["plain_ms"],
+        "bound_ms": ht["bound_ms"], "bound_by": ht["bound_by"], "library_ms": None})
 
     del model, serve, image, labels
     torch.cuda.empty_cache()

@@ -11,6 +11,7 @@ and prints, per batch:
   the head (weather classifier + fused serving head);
 - from ``torch.profiler``: device time by kernel, and the device's busy and
   idle shares of the serving window;
+- whether the decoder features reach the fused head as a view (no copy);
 - frames/s over 3 unprofiled windows of ``ITERS`` in-order batches, each
   closed by one synchronise (``bench.py``'s protocol).
 
@@ -109,6 +110,15 @@ def main() -> None:
     for _ in range(3):
         serve(image)
     torch.cuda.synchronize()
+    # serve() hands K1 feat.permute(0, 2, 3, 1).contiguous(): a view of the
+    # channels-last features, or a copy kernel before K1 if they are not
+    views = []
+    hook = model.net.feature_extractor.register_forward_hook(
+        lambda _m, _i, out: views.append(out[0].permute(0, 2, 3, 1).is_contiguous()))
+    serve(image)
+    hook.remove()
+    print("decoder features to the fused head: "
+          + ("an NHWC view, no copy" if all(views) else "copied to NHWC before K1"))
 
     fps = frames_per_s(serve, image, BATCH)
     print(f"serving: {sum(fps) / len(fps):.2f} frames/s (windows of {ITERS} batches: "
