@@ -20,9 +20,13 @@ sizes the fused head does not (1022×2046 bf16: no K1 launch; 254×510 f32
 against the CPU path), and times serving with ``bench.py``'s protocol.
 
 Then training: the contrastive kernels (K3 row stats, two passes on
-split-TF32 tensor cores; K4 positive sweep) against their plain versions,
-K3's bitwise repeat and its times beside the three-sweep kernel it
-replaced, through ``tools/profile_contrastive.py``, and the public losses'
+split-TF32 tensor cores; K4 positive sweep over the label-sorted rows'
+same-label columns, on the same products) against their plain versions
+(K4 also against its plain emulation, on the dense step's anchor grid and
+with one label, its layout kernel against a stable ``torch.sort``), their
+bitwise repeat, K4's three launches of its own kernels and no host sync a
+call, and their times beside the first ports they replaced, which each
+must beat, through ``tools/profile_contrastive.py``, and the public losses'
 values and gradients against autograd of the dense losses (phase 6); the flagship
 doubly-contrastive train step at 768², batch 8 with two views, bf16, with
 gradient checkpointing, whose losses take the plain route as in the JAX
@@ -111,30 +115,22 @@ def contrastive_phase(torch, contrastive, profile_contrastive, gen, dev):
     """K3 against its plain version at N = 8192, 8200, 300 (and odd D, N =
     1) on both schedules, bitwise repeat and launches a call
     (``profile_contrastive.check_row_stats``); K4 against its plain version
-    from K3's row stats; the public losses' values and gradients against
-    autograd of the dense losses; the kernel route alone at N = 65536; then
-    K3 beside the three-sweep kernel it replaces, and K4, timed
-    (``profile_contrastive.time_routes``). Returns the kernel line's numbers."""
+    and its plain emulation from K3's row stats at N = 8192, 8200, 300, the
+    dense step's anchor grid (8208), one label and edge cases, its layout
+    against a stable ``torch.sort``, bitwise repeat, its own three launches
+    and no host sync a call
+    (``profile_contrastive.check_pos_sweep``); the public losses' values and
+    gradients against autograd of the dense losses; the kernel route alone
+    at N = 65536; then K3 beside the three-sweep kernel and K4 beside the
+    dense sweep they replace, timed, each required faster
+    (``profile_contrastive.time_routes``, ``time_anchor_grid``). Returns
+    the kernel line's numbers."""
     from doubly_contrastive_semseg_tpu_torch.losses.pixel_contrast import _masked_contrastive
     from doubly_contrastive_semseg_tpu_torch.losses.supcon import supcon_loss
 
     inputs = profile_contrastive.contrastive_inputs
     k3_err = profile_contrastive.check_row_stats(gen, dev, log)
-    k4_err = 0.0
-    for n in (KERNEL_N, KERNEL_N + 8, 300):
-        z, labels, valid = inputs(gen, dev, n, 19)
-        _, _, s_, m, nrm = contrastive.contrastive_row_stats(z, labels, valid, neg_mode=True)
-        q, c4 = contrastive.pixel_contrast_pos_sweep(z, labels, valid, m, nrm, s_)
-        q_ref, c_ref = contrastive.pixel_contrast_sweep_reference(z, labels, valid, m, nrm, s_)
-        torch.cuda.synchronize()
-        q_err = (q - q_ref).abs().max().item()
-        log(f"  positive sweep N={n}: q max abs err {q_err:.2e} (tolerance "
-            f"{1e-5 * q_ref.abs().max().item():.2e}), c exact: "
-            f"{bool(torch.equal(c4, c_ref))}")
-        check(q_err <= 1e-5 * q_ref.abs().max().item() and torch.equal(c4, c_ref),
-              f"pixel_contrast_pos_sweep disagrees at N={n}")
-        if n == KERNEL_N:
-            k4_err = q_err
+    k4_check = profile_contrastive.check_pos_sweep(gen, dev, log)
 
     for n in (KERNEL_N, 2 * KERNEL_N):
         z, labels, valid = inputs(gen, dev, n, 19)
@@ -174,10 +170,14 @@ def contrastive_phase(torch, contrastive, profile_contrastive, gen, dev):
     del x, loss, z
 
     timing = profile_contrastive.time_routes(gen, dev, log)
+    grid = profile_contrastive.time_anchor_grid(gen, dev, log)
     for n, t in timing.items():
         check(t["ms"] < t["three_sweep_ms"],
               f"K3 at N={n} is not faster than the three-sweep kernel")
-    return k3_err, k4_err, timing[KERNEL_N]
+    for what, t in [*timing.items(), ("the anchor grid", grid)]:
+        check(t["k4_ms"] < t["k4_dense_ms"],
+              f"K4 (layout, sweep and reduce) at {what} is not faster than the dense sweep")
+    return k3_err, k4_check, timing[KERNEL_N]
 
 
 def snapshot(model, prefixes):
@@ -209,8 +209,9 @@ def flagship_phase(torch, gen, dev):
     before_frozen = snapshot(model, frozen)
     before_trunk = snapshot(model, ("net.feature_extractor.",))
     anchors = torch.Generator(device=dev).manual_seed(0)
-    for fn in (contrastive.contrastive_row_stats, contrastive.pixel_contrast_pos_sweep,
-               stem.fused_stem_pool, seghead.fused_seghead_upsample_argmax):
+    for fn in (contrastive.contrastive_row_stats, contrastive.pos_sweep_layout,
+               contrastive.pixel_contrast_pos_sweep, stem.fused_stem_pool,
+               seghead.fused_seghead_upsample_argmax):
         fn.launches = 0
     step_s, peak_gb = [], 0.0
     for i in range(6):
@@ -228,6 +229,7 @@ def flagship_phase(torch, gen, dev):
             ", ".join(f"{k} {v:.4f}" for k, v in comps.items()))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     flag_launches = {"contrastive_row_stats": contrastive.contrastive_row_stats.launches,
+                     "pos_sweep_layout": contrastive.pos_sweep_layout.launches,
                      "pixel_contrast_pos_sweep": contrastive.pixel_contrast_pos_sweep.launches,
                      "fused_stem_pool": stem.fused_stem_pool.launches,
                      "fused_seghead_upsample_argmax":
@@ -367,8 +369,8 @@ def card_vs_cpu_phase(torch, gen, dev):
 def dense_phase(torch, gen, dev):
     """8. The dense-contrast step: 3 steps, each launching K3 (its two
     passes and their reduces: ``profile_contrastive.LAUNCHES``) and K4's
-    sweep once; step 0's losses against the plain route on the same
-    weights. Returns the launch counts of the 3 steps."""
+    layout and sweep once each; step 0's losses against the plain route on
+    the same weights. Returns the launch counts of the 3 steps."""
     from doubly_contrastive_semseg_tpu_torch.tools.profile_contrastive import LAUNCHES
     from doubly_contrastive_semseg_tpu_torch import Config, build_model
     from doubly_contrastive_semseg_tpu_torch.tools.profile_train import make_batch
@@ -395,24 +397,26 @@ def dense_phase(torch, gen, dev):
                                    use_kernel=False)
     model.load_state_dict(weights)
     del weights
-    contrastive.contrastive_row_stats.launches = 0
-    contrastive.pixel_contrast_pos_sweep.launches = 0
+    kernels = {"contrastive_row_stats": contrastive.contrastive_row_stats,
+               "pos_sweep_layout": contrastive.pos_sweep_layout,
+               "pixel_contrast_pos_sweep": contrastive.pixel_contrast_pos_sweep}
+    for fn in kernels.values():
+        fn.launches = 0
     anchors = torch.Generator(device=dev).manual_seed(5)
     for i in range(3):
-        k3_before = contrastive.contrastive_row_stats.launches
-        k4_before = contrastive.pixel_contrast_pos_sweep.launches
+        before = {k: fn.launches for k, fn in kernels.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = train_step(state, batch, anchors)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         comps = {k: v.item() for k, v in metrics.items()}
-        d3 = contrastive.contrastive_row_stats.launches - k3_before
-        d4 = contrastive.pixel_contrast_pos_sweep.launches - k4_before
-        log(f"  step {i}: {1e3 * dt:.1f} ms, row-stats launches {d3}, positive sweeps {d4}; "
-            + ", ".join(f"{k} {v:.5f}" for k, v in comps.items()))
-        check(d3 == LAUNCHES and d4 == 1, f"each dense step must launch K3 {LAUNCHES} times "
-              "(2 passes, 2 reduces) and 1 positive sweep")
+        d3, d_layout, d4 = (fn.launches - before[k] for k, fn in kernels.items())
+        log(f"  step {i}: {1e3 * dt:.1f} ms, row-stats launches {d3}, positive sweep layouts "
+            f"{d_layout} and sweeps {d4}; " + ", ".join(f"{k} {v:.5f}" for k, v in comps.items()))
+        check(d3 == LAUNCHES and d_layout == 1 and d4 == 1,
+              f"each dense step must launch K3 {LAUNCHES} times (2 passes, 2 reduces) and K4's "
+              "layout and sweep once each")
         check(all(map(lambda v: v == v and abs(v) < float("inf"), comps.values())),
               f"dense step {i}: a loss is not finite")
         if i == 0:
@@ -421,8 +425,7 @@ def dense_phase(torch, gen, dev):
             log("  step 0 vs the plain route on the same weights: "
                 + ", ".join(f"{k} {plain[k].item():.6f} (rel {rel[k]:.2e})" for k in plain))
             check(max(rel.values()) <= 1e-4, "the kernel route disagrees with the plain route")
-    dense_launches = {"contrastive_row_stats": contrastive.contrastive_row_stats.launches,
-                      "pixel_contrast_pos_sweep": contrastive.pixel_contrast_pos_sweep.launches}
+    dense_launches = {k: fn.launches for k, fn in kernels.items()}
     log(f"  launches in 3 steps: {dense_launches}")
     del model, opt, state, train_step, batch
     torch.backends.cudnn.deterministic = False
@@ -756,8 +759,8 @@ def main() -> int:
     # 1. card and build
     log(f"== 1. card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    sources = ["stem_pool_tc", "stem_pool", "seghead_tc", "seghead", "row_stats", "contrastive",
-               "blend"]
+    sources = ["stem_pool_tc", "stem_pool", "seghead_tc", "seghead", "row_stats", "pos_sweep",
+               "contrastive", "blend"]
     build_logs = _build.build(sources)
     log(f"  built {', '.join(f'csrc/{n}.cu' for n in sources)} for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -922,8 +925,8 @@ def main() -> int:
     # 6. the contrastive kernels
     log("== 6. contrastive kernels (K3 row stats, K4 positive sweep) vs their plain "
         "versions, f32")
-    k3_err, k4_err, k_times = contrastive_phase(torch, contrastive, profile_contrastive,
-                                                gen, dev)
+    k3_err, k4_check, k_times = contrastive_phase(torch, contrastive, profile_contrastive,
+                                                  gen, dev)
 
     # 7-8. training
     flagship_phase(torch, gen, dev)
@@ -939,10 +942,20 @@ def main() -> int:
         "bound_ms": k_times["bound_ms"], "bound_by": k_times["bound_by"],
         "library_ms": None})
     kernels.append({
-        "name": "pixel_contrast_pos_sweep", "route": "cuda",
-        "source": "doubly_contrastive_semseg_tpu_torch/csrc/contrastive.cu",
+        "name": "pos_sweep_layout", "route": "cuda",
+        "source": "doubly_contrastive_semseg_tpu_torch/csrc/pos_sweep.cu",
         "replaces": "doubly_contrastive_semseg_tpu/ops/contrastive_pallas.py:510",
-        "launches": dense_launches["pixel_contrast_pos_sweep"], "max_abs_err": k4_err,
+        "launches": dense_launches["pos_sweep_layout"],
+        "max_abs_err": k4_check["layout_max_abs_err"],
+        "ms": k_times["layout_ms"], "plain_ms": k_times["layout_plain_ms"],
+        "bound_ms": k_times["layout_bound_ms"], "bound_by": k_times["layout_bound_by"],
+        "library_ms": k_times["layout_library_ms"]})
+    kernels.append({
+        "name": "pixel_contrast_pos_sweep", "route": "cuda",
+        "source": "doubly_contrastive_semseg_tpu_torch/csrc/pos_sweep.cu",
+        "replaces": "doubly_contrastive_semseg_tpu/ops/contrastive_pallas.py:510",
+        "launches": dense_launches["pixel_contrast_pos_sweep"],
+        "max_abs_err": k4_check["max_abs_err"],
         "ms": k_times["k4_ms"], "plain_ms": k_times["k4_plain_ms"],
         "bound_ms": k_times["k4_bound_ms"], "bound_by": k_times["k4_bound_by"],
         "library_ms": None})

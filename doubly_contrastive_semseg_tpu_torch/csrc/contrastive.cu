@@ -17,8 +17,9 @@
 // contrastive_pallas.py: contrastive_row_stats (_max_kernel, _norm_kernel,
 // _sums_kernel) for the first three sweeps, and the fourth sweep of
 // pixel_contrast_loss_pallas (_pc_kernel). The row stats now run in
-// csrc/row_stats.cu; sweeps 0-3 stay only as the yardstick the tools time
-// it against (ops/contrastive.py::_three_sweep_row_stats).
+// csrc/row_stats.cu and the positive sweep in csrc/pos_sweep.cu; sweeps 0-3
+// and sweep 4 stay only as the yardsticks the tools time them against
+// (ops/contrastive.py::_three_sweep_row_stats, _dense_pos_sweep).
 //
 // Bound: operations, f32 on CUDA cores (67 TFLOP/s on an H100 SXM at 700 W);
 // Z is 4 MB at N = 8192, D = 128. This kernel recomputes every logit in

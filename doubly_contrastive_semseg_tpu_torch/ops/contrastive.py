@@ -5,15 +5,23 @@ Port of the JAX package's ``ops/contrastive_pallas.py``. The TPU kernel
 ``_sums_kernel``) becomes ``csrc/row_stats.cu``: two passes over the
 symmetric half of the logits on split-TF32 tensor cores, each followed by a
 reduce launch. The fourth sweep of ``pixel_contrast_loss_pallas`` (K4:
-``_pc_kernel``) is sweep 4 of ``csrc/contrastive.cu``, whose sweeps 0–3 (the
-first port of K3) stay reachable only through ``_three_sweep_row_stats``
-for the tools that time the two routes side by side. Each source's note
-names its bound (operations) and its design. A tensor on the CPU takes the
-plain versions, ``contrastive_row_stats_reference`` and
-``pixel_contrast_sweep_reference`` (dense N×N, same masks and clamps); a
-CUDA tensor launches the kernel or raises. ``row_stats_tiled`` repeats the
-new kernel's arithmetic in plain PyTorch (split-TF32 products, pass A's
-partials merged by the exact shift), so the CPU tests hold the algorithm.
+``_pc_kernel``) becomes ``csrc/pos_sweep.cu``: the rows sorted by label on
+the card by its layout kernel (``pos_sweep_layout``; plain version a stable
+``torch.sort``), each tile of 32 sorted rows visiting only the columns of
+its labels, on the same split-TF32 products, split over four blocks whose
+partials a reduce launch adds in a fixed order. The first port
+of both, ``csrc/contrastive.cu`` (every logit recomputed on CUDA cores in
+each sweep), stays reachable only through ``_three_sweep_row_stats`` and
+``_dense_pos_sweep``, the yardsticks the tools time the two kernels
+against. Each source's note names its bound (operations) and its design. A
+tensor on the CPU takes the plain versions,
+``contrastive_row_stats_reference`` and ``pixel_contrast_sweep_reference``
+(dense N×N, same masks and clamps); a CUDA tensor launches the kernel or
+raises. ``row_stats_tiled`` and ``pos_sweep_segmented`` repeat the new
+kernels' arithmetic in plain PyTorch (split-TF32 products; pass A's
+partials merged by the exact shift; the sorted rows' column ranges found by
+the kernel's warp search, the positives summed in its order), so the CPU
+tests hold the algorithms.
 
 Over L = Z Zᵀ/τ with l̂_ij = (l_ij − m_i)/n_i on valid pairs, the sweeps give
 the row max m, the row norm n = max(‖l − m‖₂, 1e-12) over valid columns,
@@ -44,6 +52,11 @@ MAX_D = 256
 BWD_CHUNK = 256  # rows a backward slab holds; live memory ≈ a few × chunk·N f32
 
 ROW_TILE = 128   # rows and columns of a tile of csrc/row_stats.cu
+POS_ROWS = 32    # sorted rows a block of csrc/pos_sweep.cu takes
+POS_COLS = 64    # columns of a tile there
+POS_SPLIT = 4    # blocks a row tile, each every 4th column tile of its range
+POS_LANES = 32   # probes a round of its warp search
+INVALID_KEY = 1 << 40   # an invalid row's sort key: above every int32 label
 
 _SWEEP_MAX, _SWEEP_NORM, _SWEEP_SUMS, _SWEEP_SUMS_NEG, _SWEEP_POS = range(5)
 _PASS_A, _REDUCE_A, _PASS_B, _REDUCE_B = range(4)
@@ -95,6 +108,14 @@ def pixel_contrast_sweep_reference(z, labels, valid, m, n, s,
 
 
 def _kernel_inputs(z, labels, valid):
+    z = _checked_z(z, labels, valid)
+    return (z, labels.detach().to(torch.int32).contiguous(),
+            valid.detach().to(torch.int32).contiguous())
+
+
+def _checked_z(z, labels, valid):
+    """z, contiguous and 16-byte aligned, after checking the shapes, device
+    and dtype every kernel of this module takes."""
     if z.dim() != 2 or not 1 <= z.shape[1] <= MAX_D or z.shape[0] < 1:
         raise ValueError(f"contrastive: z must be (N >= 1, D <= {MAX_D}), "
                          f"got {tuple(z.shape)}")
@@ -110,8 +131,7 @@ def _kernel_inputs(z, labels, valid):
     z = z.detach().contiguous()
     if z.data_ptr() % 16:
         z = z.clone()
-    return (z, labels.detach().to(torch.int32).contiguous(),
-            valid.detach().to(torch.int32).contiguous())
+    return z
 
 
 def _sweep(lib, sweep, z, labels, valid, temperature, stats, n_out, what):
@@ -183,24 +203,95 @@ def _three_sweep_row_stats(z, labels, valid, temperature: float = 0.07,
     return p, c, s, m, n
 
 
-def pixel_contrast_pos_sweep(z, labels, valid, m, n, s, temperature: float = 0.07):
-    """K4's fourth sweep: (q, c), each (N,) float32, given the ``neg_mode``
-    row stats (m, n, s) of ``contrastive_row_stats``. Counts its launches in
-    ``pixel_contrast_pos_sweep.launches``."""
-    if z.device.type == "cpu":
-        return pixel_contrast_sweep_reference(z, labels, valid, m, n, s, temperature)
-    z, labels, valid = _kernel_inputs(z, labels, valid)
+def pos_sweep_layout_reference(labels, valid):
+    """Plain semantics of K4's layout: (sorted keys, perm), int64 (N,), from
+    a stable sort of key_i = label_i, or ``INVALID_KEY`` for an invalid row
+    (above every int32 label: nothing is reserved). Rows of one label are
+    contiguous and invalid rows come last."""
+    keys = torch.where(valid.bool(), labels.long(), INVALID_KEY)
+    return torch.sort(keys, stable=True)
+
+
+def pos_sweep_layout(labels, valid):
+    """K4's layout step, ``pos_sweep_layout_reference``'s (keys, perm)
+    exactly. On a CUDA tensor one launch of ``csrc/pos_sweep.cu``'s layout
+    kernel (each row placed by counting the rows before it in (key, index)
+    order), counted in ``pos_sweep_layout.launches``, with no host sync;
+    where the library's stable radix sort of int64 keys takes 25 launches."""
+    if labels.device.type == "cpu":
+        return pos_sweep_layout_reference(labels, valid)
+    n = labels.shape[0]
+    if n < 1 or valid.shape != (n,) or valid.device != labels.device:
+        raise ValueError("pos_sweep_layout: labels and valid must be (N >= 1,) on one device")
+    labels = labels.detach().to(torch.int32).contiguous()
+    valid = valid.detach().bool().contiguous().view(torch.uint8)
+    keys, perm = (torch.empty(n, dtype=torch.int64, device=labels.device) for _ in range(2))
+    lib = _pos_sweep_lib()
+    with torch.cuda.device(labels.device):
+        status = lib.dcss_pos_sweep_layout(
+            labels.data_ptr(), valid.data_ptr(), n, keys.data_ptr(), perm.data_ptr(),
+            torch.cuda.current_stream(labels.device).cuda_stream)
+    _build.check(lib, status, "pos_sweep_layout")
+    pos_sweep_layout.launches += 1
+    return keys, perm
+
+
+pos_sweep_layout.launches = 0
+
+
+def _pos_stats(z, m, n, s):
     stats = tuple(t.detach().float().contiguous() for t in (m, n, s))
     for t in stats:
         if t.shape != (z.shape[0],) or t.device != z.device:
             raise ValueError("pixel_contrast_pos_sweep: m, n, s must be (N,) on z's device")
-    q, c = _sweep(_lib(), _SWEEP_POS, z, labels, valid, temperature, stats, 2,
-                  "pixel_contrast_pos_sweep")
+    return stats
+
+
+def _pos_sweep_launch(z, keys, perm, stats, temperature):
+    """The sweep of ``csrc/pos_sweep.cu`` and the reduce of its partials on
+    checked inputs and a layout from ``pos_sweep_layout``: (q, c) in the
+    caller's row order."""
+    n = z.shape[0]
+    q, c = (torch.empty(n, dtype=torch.float32, device=z.device) for _ in range(2))
+    scratch = torch.empty(2 * POS_SPLIT * n, dtype=torch.float32, device=z.device)
+    lib = _pos_sweep_lib()
+    with torch.cuda.device(z.device):
+        status = lib.dcss_pos_sweep(
+            z.data_ptr(), perm.data_ptr(), keys.data_ptr(),
+            *(t.data_ptr() for t in stats), n, z.shape[1], 1.0 / temperature,
+            scratch.data_ptr(), q.data_ptr(), c.data_ptr(),
+            torch.cuda.current_stream(z.device).cuda_stream)
+    _build.check(lib, status, "pixel_contrast_pos_sweep")
+    return q, c
+
+
+def pixel_contrast_pos_sweep(z, labels, valid, m, n, s, temperature: float = 0.07):
+    """K4: (q, c), each (N,) float32, given the ``neg_mode`` row stats (m, n,
+    s) of ``contrastive_row_stats``. On a CUDA tensor: the layout step
+    (``pos_sweep_layout``: one launch, and no library launch), then the
+    sweep of ``csrc/pos_sweep.cu`` and the reduce of its partials (two
+    launches of one C call), counted once in
+    ``pixel_contrast_pos_sweep.launches``; no host sync."""
+    if z.device.type == "cpu":
+        return pixel_contrast_sweep_reference(z, labels, valid, m, n, s, temperature)
+    z = _checked_z(z, labels, valid)
+    stats = _pos_stats(z, m, n, s)
+    keys, perm = pos_sweep_layout(labels, valid)
+    q, c = _pos_sweep_launch(z, keys, perm, stats, temperature)
     pixel_contrast_pos_sweep.launches += 1
     return q, c
 
 
 pixel_contrast_pos_sweep.launches = 0
+
+
+def _dense_pos_sweep(z, labels, valid, m, n, s, temperature: float = 0.07):
+    """K4's first port, sweep 4 of ``csrc/contrastive.cu`` (all N² logits on
+    CUDA cores), on a CUDA tensor: the yardstick the tools time the
+    segmented kernel against. No public path calls it."""
+    z, labels, valid = _kernel_inputs(z, labels, valid)
+    return _sweep(_lib(), _SWEEP_POS, z, labels, valid, temperature, _pos_stats(z, m, n, s),
+                  2, "dense positive sweep")
 
 
 def _lib() -> ctypes.CDLL:
@@ -210,6 +301,18 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                        + [ctypes.c_float] + [ctypes.c_void_p] * 7)
         fn.restype = ctypes.c_int
+    return lib
+
+
+def _pos_sweep_lib() -> ctypes.CDLL:
+    lib = _build.load("pos_sweep")
+    fn, layout = lib.dcss_pos_sweep, lib.dcss_pos_sweep_layout
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float]
+                       + [ctypes.c_void_p] * 4)
+        fn.restype = ctypes.c_int
+        layout.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+        layout.restype = ctypes.c_int
     return lib
 
 
@@ -292,6 +395,104 @@ def row_stats_tiled(z, labels, valid, temperature: float = 0.07, neg_mode: bool 
     s, p, c = (sum(t[:, t0:t0 + tile].sum(dim=1) for t0 in range(0, z.shape[0], tile))
                for t in terms)
     return p, c, s, m, n
+
+
+# ---- csrc/pos_sweep.cu's arithmetic in plain PyTorch ------------------------
+
+def warp_lower_bound(keys, target, lo, hi):
+    """For each entry, the first index in [lo, hi) whose sorted key is ≥
+    target, or hi, as the kernel's warp finds it: each round probes
+    ``POS_LANES`` keys ``step = ⌈(hi − lo)/32⌉`` apart and keeps the gap
+    between the last probe below the target and the first at or above it."""
+    lanes = torch.arange(POS_LANES, device=keys.device)
+    last = max(keys.shape[0] - 1, 0)
+    lo, hi = lo.clone(), hi.clone()
+    while bool((lo < hi).any()):
+        active = lo < hi
+        step = (hi - lo + POS_LANES - 1) // POS_LANES
+        p = lo[:, None] + lanes[None, :] * step[:, None]
+        ge = (p >= hi[:, None]) | (keys[p.clamp(0, last)] >= target[:, None])
+        none = ~ge.any(dim=1)
+        f = ge.int().argmax(dim=1)   # the first probe at or above the target
+        new_lo = torch.where(none, lo + (POS_LANES - 1) * step + 1,
+                             torch.where(f == 0, lo, lo + (f - 1) * step + 1))
+        new_hi = torch.where(none, hi, torch.where(f == 0, lo, torch.minimum(lo + f * step, hi)))
+        lo, hi = torch.where(active, new_lo, lo), torch.where(active, new_hi, hi)
+    return lo
+
+
+def pos_sweep_column_ranges(sorted_keys, rows: int = POS_ROWS):
+    """(begin, end, n_valid), each (⌈N/rows⌉,) int64, of each row tile of
+    the sorted order: its valid rows (a prefix: invalid keys sort last), and
+    the columns [begin, end) its block visits, from the start of its first
+    row's label segment to the end of its last valid row's, by the kernel's
+    warp search. A tile with no valid row has an empty range."""
+    n = sorted_keys.shape[0]
+    dev = sorted_keys.device
+    r0 = torch.arange(0, n, rows, device=dev)
+    idx = r0[:, None] + torch.arange(rows, device=dev)[None, :]
+    kt = torch.where(idx < n, sorted_keys[idx.clamp(max=n - 1)], INVALID_KEY)
+    n_valid = (kt < INVALID_KEY).sum(dim=1)
+    first = kt[:, 0]
+    last = kt.gather(1, (n_valid - 1).clamp(min=0)[:, None])[:, 0]
+    begin = warp_lower_bound(sorted_keys, first, torch.zeros_like(r0), r0)
+    end = warp_lower_bound(sorted_keys, last + 1, r0 + n_valid, torch.full_like(r0, n))
+    empty = n_valid == 0
+    return torch.where(empty, 0, begin), torch.where(empty, 0, end), n_valid
+
+
+def pos_sweep_segmented(z, labels, valid, m, n, s, temperature: float = 0.07,
+                        rows: int = POS_ROWS):
+    """K4's (q, c) by ``csrc/pos_sweep.cu``'s steps: the stable sort
+    (``pos_sweep_layout_reference``); each row tile's column range
+    (``pos_sweep_column_ranges``); the split-TF32 logits of its rows
+    against its range in tiles of ``POS_COLS``, every ``POS_SPLIT``-th tile
+    to one block; on positives l̂ = (l − m)·(1/n) and l̂ − log(exp(l̂) + s),
+    summed in the kernels' order (each lane's columns tile by tile, the 4
+    lanes of a row as the xor-1-then-xor-2 shuffles add them, the block's
+    two column warps, then the reduce adds the blocks' partials in split
+    order); q and c scattered back to the caller's row order."""
+    z = z.float()
+    nn = z.shape[0]
+    dev = z.device
+    keys, perm = pos_sweep_layout_reference(labels, valid)
+    begin, end, n_valid = pos_sweep_column_ranges(keys, rows)
+    zs = z[perm]
+    ms, rn, ss = m.float()[perm], 1.0 / n.float()[perm], s.float()[perm]
+    q_sorted = torch.zeros(nn, dtype=torch.float32, device=dev)
+    c_sorted = torch.zeros(nn, dtype=torch.float32, device=dev)
+    for t, (b, e, nv) in enumerate(zip(begin.tolist(), end.tolist(), n_valid.tolist())):
+        if nv == 0:
+            continue
+        ri = torch.arange(t * rows, t * rows + nv, device=dev)
+        ntiles = -(-(e - b) // POS_COLS)
+        cols = b + torch.arange(ntiles * POS_COLS, device=dev)
+        cin = cols < nn
+        cc = cols.clamp(max=nn - 1)
+        zc = torch.where(cin[:, None], zs[cc], 0.0)
+        logits = split_tf32_matmul(zs[ri], zc) * (1.0 / temperature)
+        pos = (cin[None, :] & (keys[cc][None, :] == keys[ri][:, None])
+               & (cols[None, :] != ri[:, None]))
+        lh = (logits - ms[ri][:, None]) * rn[ri][:, None]
+        term = torch.where(pos, lh - torch.log(torch.exp(lh) + ss[ri][:, None]), 0.0)
+        # column of a tile = 32 wn + 8 ni + 2 lane_t + b
+        term = term.reshape(nv, ntiles, 2, 4, 4, 2)
+        lane = torch.zeros(nv, POS_SPLIT, 2, 4, dtype=torch.float32, device=dev)
+        for u in range(ntiles):
+            for ni in range(4):
+                for bb in range(2):
+                    lane[:, u % POS_SPLIT] += term[:, u, :, ni, :, bb]
+        warp = (lane[..., 0] + lane[..., 1]) + (lane[..., 2] + lane[..., 3])
+        block = warp[..., 0] + warp[..., 1]          # each split's partial
+        q = torch.zeros(nv, dtype=torch.float32, device=dev)
+        for sp in range(POS_SPLIT):                  # the reduce, in split order
+            q = q + block[:, sp]
+        q_sorted[ri] = q
+        c_sorted[ri] = pos.sum(dim=1).float()
+    q_out, c_out = torch.empty_like(q_sorted), torch.empty_like(c_sorted)
+    q_out[perm] = q_sorted
+    c_out[perm] = c_sorted
+    return q_out, c_out
 
 
 # ---- backward: chunked dZ = (G + Gᵀ) Z / τ --------------------------------

@@ -34,8 +34,9 @@ from ..train import TrainState, build_optimizer, ingest_batch, make_train_step, 
 CRITERION = "supcon_pixelcontrast_focal"
 CONFIGS = (("flagship", 8, 768), ("dense-contrast", 216, 96))
 ITERS = 5
-# kernel names of csrc/row_stats.cu (K3) and csrc/contrastive.cu (K4's sweep)
-CONTRASTIVE_KERNELS = ("tile_kernel", "reduce_a_kernel", "reduce_b_kernel", "sweep_kernel")
+# kernel names of csrc/row_stats.cu (K3) and csrc/pos_sweep.cu (K4)
+CONTRASTIVE_KERNELS = ("tile_kernel", "reduce_a_kernel", "reduce_b_kernel", "layout_kernel",
+                       "pos_sweep_kernel")
 
 
 def make_batch(b: int, crop: int, gen: torch.Generator, device="cuda",
@@ -131,8 +132,8 @@ def profile(name: str, b: int, crop: int) -> None:
     ours = [e for e in kernels
             if any(f"::{k}{c}" in e.key for k in CONTRASTIVE_KERNELS for c in "<(")]
     if ours:
-        print("the contrastive kernels (K3: tile_kernel, reduce_a/b_kernel; K4: sweep_kernel), "
-              "ms per step:")
+        print("the contrastive kernels (K3: tile_kernel, reduce_a/b_kernel; K4: "
+              "layout_kernel, pos_sweep_kernel), ms per step:")
         for e in ours:
             print(f"  {e.self_device_time_total / 1e3 / ITERS:8.3f} ms "
                   f"x{e.count // ITERS:<5d} {e.key[:110]}")

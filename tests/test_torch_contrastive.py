@@ -11,7 +11,11 @@ values rtol 1e-5 (the sums run in another order); gradients 1e-4 × max|g|.
 The CUDA row-stats kernel cannot run here, so its arithmetic is held in
 plain PyTorch (``row_stats_tiled``: split-TF32 products, per-tile partials
 merged by the exact shift) against the plain version and the Pallas
-kernels, with c and invalid rows' m exact.
+kernels, with c and invalid rows' m exact; so is the positive-sweep
+kernel's (``pos_sweep_segmented``: label-sorted rows, column ranges by the
+kernel's warp search, split-TF32 logits, positives summed in its order),
+with q within 1e-5 × max|q| and c exact, and its column ranges against a
+numpy ``argsort``/``searchsorted`` oracle.
 """
 
 import numpy as np
@@ -33,7 +37,8 @@ def _inputs(rng, n, d, n_labels, invalid_share=0.1):
 
 
 def _launches():
-    return (cp.contrastive_row_stats.launches, cp.pixel_contrast_pos_sweep.launches)
+    return (cp.contrastive_row_stats.launches, cp.pos_sweep_layout.launches,
+            cp.pixel_contrast_pos_sweep.launches)
 
 
 def _close(got, want, rtol=1e-5, what=""):
@@ -258,3 +263,174 @@ def test_kernel_wrappers_refuse_bad_shapes():
     lab = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="D <= 256"):
         cp._kernel_inputs(z, lab, lab.bool())
+
+
+# ---- K4: the segmented positive sweep's arithmetic -------------------------
+
+def _pc_loss_from_sweep(q, c, valid):
+    """Pixel contrast's loss from (q, c) as ``_pc_core_fwd`` forms it (τ = τ_b)."""
+    q, c = np.asarray(q, np.float64), np.asarray(c, np.float64)
+    row_ok = valid & (c > 0)
+    if not row_ok.any():
+        return 0.0
+    return float((-q / np.maximum(c, 1.0))[row_ok].sum() / row_ok.sum())
+
+
+def _check_pos_sweep(z, labels, valid, neg_mode=True):
+    """``pos_sweep_segmented`` against the plain version (q within 1e-5 ×
+    max|q|, c exact; c = segment size − 1 on valid rows, 0 elsewhere) and,
+    through the loss it forms, against JAX ``_pc_core_fwd`` in interpret
+    mode (rtol 1e-5), given K3's stats in ``neg_mode`` (or, with ``neg_mode``
+    False, supcon's s, which the sweep takes as well; JAX not compared).
+    Returns q."""
+    zt, lt, vt = torch.from_numpy(z), torch.from_numpy(labels), torch.from_numpy(valid)
+    _, _, s, m, nrm = cp.contrastive_row_stats(zt, lt, vt, neg_mode=neg_mode)
+    before = _launches()
+    q, c = cp.pos_sweep_segmented(zt, lt, vt, m, nrm, s)
+    assert _launches() == before
+    q_ref, c_ref = cp.pixel_contrast_sweep_reference(zt, lt, vt, m, nrm, s)
+    np.testing.assert_array_equal(c.numpy(), c_ref.numpy())
+    seg = np.array([(labels[valid] == lab).sum() - 1 if ok else 0
+                    for lab, ok in zip(labels, valid)], np.float32)
+    np.testing.assert_array_equal(c.numpy(), seg)
+    scale = np.abs(q_ref.numpy()).max()
+    np.testing.assert_allclose(q.numpy(), q_ref.numpy(), rtol=0, atol=1e-5 * scale)
+    assert np.all(q.numpy()[seg == 0] == 0)
+    if not neg_mode:
+        return q.numpy()
+    zj = jnp.asarray(z)
+    loss_j = jcp._pc_core_fwd(zj, jnp.asarray(labels, jnp.float32),
+                              jnp.asarray(valid, jnp.float32), 0.07, 0.07, 128, True)[0]
+    _close(_pc_loss_from_sweep(q.numpy(), c.numpy(), valid), float(loss_j), what="loss from q")
+    return q.numpy()
+
+
+@pytest.mark.parametrize("n,d", [(200, 64), (200, 128), (300, 64), (300, 128)])
+def test_pos_sweep_segmented_matches_reference_and_pallas(rng, n, d):
+    """The segmented kernel's arithmetic on random labels, N not a multiple
+    of the 32-row tile, 10 % of the rows invalid."""
+    _check_pos_sweep(*_inputs(rng, n, d, 19))
+
+
+def _pos_case(rng, case):
+    """(z, labels, valid) of one edge case of the segmented sweep."""
+    n, d = {"n1": (1, 64), "d37": (300, 37), "ragged": (97, 64)}.get(case, (304, 64))
+    z, labels, valid = _inputs(rng, n, d, 19)
+    if case == "anchor_grid":        # the dense step's anchors: class c of image b, two views
+        labels = (np.arange(n) % 19).astype(np.int32)
+        valid = np.tile(rng.uniform(size=n // 2) >= 0.1, 2)
+    elif case == "one_label":         # the walk degenerates to the full square
+        labels[:] = 7
+        valid[:] = True
+    elif case == "negative_labels":
+        labels = rng.integers(-6, 3, n).astype(np.int32)
+    elif case == "all_invalid":
+        valid[:] = False
+    elif case == "lone_row":          # label 18 has one valid row: c = q = 0 there
+        labels[labels == 18] = 17
+        labels[5], valid[5] = 18, True
+    return z, labels, valid
+
+
+@pytest.mark.parametrize("case", ["anchor_grid", "one_label", "negative_labels", "all_invalid",
+                                  "lone_row", "n1", "d37", "ragged"])
+def test_pos_sweep_segmented_edge_cases(rng, case):
+    z, labels, valid = _pos_case(rng, case)
+    if case == "one_label":
+        # no negatives: s = 0 and every term l̂ − log(exp(l̂)) is 0 in exact
+        # arithmetic, so q is rounding noise (≤ a few ulp of |l̂| ≤ 1 a term);
+        # the full-square walk is held with supcon's s, which gives q a scale,
+        # and the neg_mode loss on both sides to that noise
+        _check_pos_sweep(z, labels, valid, neg_mode=False)
+        zt, lt, vt = torch.from_numpy(z), torch.from_numpy(labels), torch.from_numpy(valid)
+        _, _, s, m, nrm = cp.contrastive_row_stats(zt, lt, vt, neg_mode=True)
+        q, c = cp.pos_sweep_segmented(zt, lt, vt, m, nrm, s)
+        loss_j = jcp._pc_core_fwd(jnp.asarray(z), jnp.asarray(labels, jnp.float32),
+                                  jnp.asarray(valid, jnp.float32), 0.07, 0.07, 128, True)[0]
+        assert abs(_pc_loss_from_sweep(q.numpy(), c.numpy(), valid)) <= 1e-6
+        assert abs(float(loss_j)) <= 1e-6
+        return
+    q = _check_pos_sweep(z, labels, valid)
+    if case == "lone_row":
+        assert q[5] == 0
+    if case in ("all_invalid", "n1"):
+        assert np.all(q == 0)
+
+
+_LAYOUT_CASES = ["random", "anchor_grid", "one_label", "all_invalid", "n1", "wide_keys"]
+
+
+def _layout_case(rng, case):
+    """(labels, valid) of one layout case."""
+    n = {"n1": 1, "wide_keys": 5000}.get(case, 8208)
+    labels = rng.integers(0, 19, n).astype(np.int32)
+    valid = rng.uniform(size=n) >= 0.1
+    if case == "anchor_grid":
+        labels = (np.arange(n) % 19).astype(np.int32)
+    elif case == "one_label":
+        labels[:] = 0
+    elif case == "all_invalid":
+        valid[:] = False
+    elif case == "wide_keys":         # int32 extremes, many one-row labels
+        labels = rng.integers(-2 ** 31, 2 ** 31 - 1, n, dtype=np.int64).astype(np.int32)
+        labels[: n // 2] = labels[n // 2:][rng.integers(0, n // 2, n // 2)]
+        labels[:2] = [-2 ** 31, 2 ** 31 - 1]
+    return labels, valid
+
+
+@pytest.mark.parametrize("case", _LAYOUT_CASES)
+def test_pos_sweep_layout_place_keys_order_as_stable_sort(rng, case):
+    """The layout kernel places row i at #{j : key'_j < key'_i} for its
+    composite key' = (label ^ 2^31 as unsigned, or 2^32 when invalid) << 31
+    | i. Built here in numpy as the kernel builds it, those places are the
+    stable sort's (``pos_sweep_layout_reference``) and the keys unique."""
+    labels, valid = _layout_case(rng, case)
+    n = labels.shape[0]
+    k = np.where(valid, (labels.view(np.uint32) ^ np.uint32(0x80000000)).astype(np.uint64),
+                 np.uint64(1) << np.uint64(32))
+    place_key = (k << np.uint64(31)) | np.arange(n, dtype=np.uint64)
+    assert np.unique(place_key).size == n
+    perm = np.empty(n, np.int64)
+    perm[np.argsort(np.argsort(place_key))] = np.arange(n)   # row at each place
+    keys, want_perm = cp.pos_sweep_layout_reference(torch.from_numpy(labels),
+                                                    torch.from_numpy(valid))
+    np.testing.assert_array_equal(perm, want_perm.numpy())
+    np.testing.assert_array_equal(np.where(valid, labels.astype(np.int64), cp.INVALID_KEY)[perm],
+                                  keys.numpy())
+
+
+@pytest.mark.parametrize("case", _LAYOUT_CASES)
+def test_pos_sweep_column_ranges_match_searchsorted(rng, case):
+    """Each 32-row tile's valid rows and column range by the kernel's warp
+    search equal a numpy oracle: ``argsort`` (stable) of the keys, and
+    ``searchsorted`` of the first and last valid row's key."""
+    labels, valid = _layout_case(rng, case)
+    n = labels.shape[0]
+    keys = np.where(valid, labels.astype(np.int64), cp.INVALID_KEY)
+    perm = np.argsort(keys, kind="stable")
+    ks = keys[perm]
+    want = []
+    for r0 in range(0, n, cp.POS_ROWS):
+        kt = ks[r0:r0 + cp.POS_ROWS]
+        nv = int((kt < cp.INVALID_KEY).sum())
+        want.append((0, 0, 0) if nv == 0 else
+                    (np.searchsorted(ks, kt[0], "left"), np.searchsorted(ks, kt[nv - 1], "right"),
+                     nv))
+    got_keys, got_perm = cp.pos_sweep_layout(torch.from_numpy(labels), torch.from_numpy(valid))
+    np.testing.assert_array_equal(got_perm.numpy(), perm)
+    np.testing.assert_array_equal(got_keys.numpy(), ks)
+    got = torch.stack(cp.pos_sweep_column_ranges(got_keys), dim=1).numpy()
+    np.testing.assert_array_equal(got, np.array(want, np.int64).reshape(-1, 3))
+
+
+def test_pos_sweep_wrapper_takes_plain_version_on_cpu(rng):
+    """On a CPU tensor the wrapper returns the plain version itself and
+    launches nothing."""
+    z, labels, valid = _inputs(rng, 150, 32, 5)
+    zt, lt, vt = torch.from_numpy(z), torch.from_numpy(labels), torch.from_numpy(valid)
+    _, _, s, m, nrm = cp.contrastive_row_stats(zt, lt, vt, neg_mode=True)
+    before = _launches()
+    got = cp.pixel_contrast_pos_sweep(zt, lt, vt, m, nrm, s)
+    assert _launches() == before
+    for g, w in zip(got, cp.pixel_contrast_sweep_reference(zt, lt, vt, m, nrm, s)):
+        assert torch.equal(g, w)
