@@ -36,9 +36,12 @@ at batch 216 on 96² crops, where
 pixel contrast has 8208 ≥ 8192 rows and runs through K3 and K4, against the
 same step on the plain route (phase 8).
 
-Then eval: the fused upsample-blend kernel (K5) against its plain version
-at the three decoder steps of a 2048×1024 batch-8 forward, a ragged width,
-B = 1 and C = 256, with its times (phase 9); and ``make_eval_step`` with K5
+Then eval: the fused upsample-blend kernel (K5, ``mma.sync`` fed by
+``ldmatrix``) and its first design (``wmma``) against their plain version at
+the three decoder steps of a 2048×1024 batch-8 forward, a ragged width,
+B = 1 and C = 256, one device operation a packed K5 call, and their times,
+K5 required faster than the first design, through ``tools/profile_blend.py``
+(phase 9); and ``make_eval_step`` with K5
 on the decoder over 3 batches of 2048×1024, batch 8, bf16, merged into the
 ``Evaluator`` with a ``val_results.txt`` report: K2 (on tensor cores) and
 K5 launch 3 times a batch and K1 never, labels and confusion matrices agree
@@ -57,10 +60,6 @@ import json
 import subprocess
 import sys
 import time
-
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_TENSOR_FLOPS = 989e12
 
 BATCH, HEIGHT, WIDTH = 8, 1024, 2048
 CRITERION = "supcon_pixelcontrast_focal"
@@ -432,82 +431,22 @@ def dense_phase(torch, gen, dev):
     return dense_launches
 
 
-def blend_inputs(torch, gen, dev, b, hh, ww, c=128):
-    """bf16 x (B, H/2, W/2, C) and skip (B, H, W, C), a conv weight of the
-    init's scale and a random BN, on the card."""
-    return dict(x=torch.randn(b, hh // 2, ww // 2, c, generator=gen).to(dev, torch.bfloat16),
-                skip=torch.randn(b, hh, ww, c, generator=gen).to(dev, torch.bfloat16),
-                conv_weight=(torch.randn(c, c, 3, 3, generator=gen) * (2.0 / (9 * c)) ** 0.5
-                             ).to(dev),
-                bn_scale=(torch.rand(c, generator=gen) * 0.3 + 0.5).to(dev),
-                bn_bias=(torch.randn(c, generator=gen) * 0.1).to(dev),
-                bn_mean=(torch.randn(c, generator=gen) * 0.1).to(dev),
-                bn_var=(torch.rand(c, generator=gen) + 1.0).to(dev))
-
-
-def blend_phase(torch, blend, gen, dev):
-    """9. K5 against its plain version on the card at the three decoder
-    steps of a 2048×1024 batch-8 forward that take it, a ragged width tile,
-    B = 1 and C = 256; then their times beside the plain version's, the
-    bound and, for context, the unfused PyTorch step. Returns the kernel
-    line's numbers (the sums over the three headline shapes)."""
-    from doubly_contrastive_semseg_tpu_torch.models.blocks import UpsampleBlend
-
-    headline = [(BATCH, HEIGHT // 16, WIDTH // 16), (BATCH, HEIGHT // 8, WIDTH // 8),
-                (BATCH, HEIGHT // 4, WIDTH // 4)]
-    others = [(2, 64, 72), (1, 16, 40), (2, 16, 32, 256)]   # ragged, B = 1, C = 256
-    err_headline = 0.0
-    for shape in headline + others:
-        b, hh, ww = shape[:3]
-        a = blend_inputs(torch, gen, dev, *shape)
-        for out_dtype, rel_tol in ((torch.float32, 1e-3), (torch.bfloat16, 1e-2)):
-            got = blend.fused_upsample_blend(**a, out_dtype=out_dtype)
-            ref = blend.upsample_blend_reference(**a, out_dtype=out_dtype)
-            torch.cuda.synchronize()
-            check(got.shape == ref.shape == (b, hh, ww, shape[3] if len(shape) > 3 else 128)
-                  and got.dtype == out_dtype, f"blend output {tuple(got.shape)} {got.dtype}")
-            err = (got.float() - ref.float()).abs().max().item()
-            ref_max = ref.float().abs().max().item()
-            log(f"  blend {str(out_dtype)[6:]:8s} x {tuple(a['x'].shape)} -> {tuple(got.shape)}: "
-                f"max abs err {err:.3e} = {err / ref_max:.2e} x max|ref| (tolerance {rel_tol})")
-            check(err <= rel_tol * ref_max, f"blend kernel disagrees at {shape} {out_dtype}")
-            if out_dtype == torch.float32 and shape in headline:
-                err_headline = max(err_headline, err)
-        del a, got, ref
-
-    t = {"ms": 0.0, "plain_ms": 0.0, "unfused_ms": 0.0, "bytes": 0.0, "flops": 0.0}
-    for b, hh, ww in headline:
-        a = blend_inputs(torch, gen, dev, b, hh, ww)
-        step = UpsampleBlend(128).to(dev, memory_format=torch.channels_last).eval()
-        with torch.no_grad():
-            step.blend_conv.conv.weight.copy_(a["conv_weight"])
-            norm = step.blend_conv.norm
-            for name, key in (("weight", "bn_scale"), ("bias", "bn_bias"),
-                              ("running_mean", "bn_mean"), ("running_var", "bn_var")):
-                getattr(norm, name).copy_(a[key])
-            x_nchw, skip_nchw = a["x"].permute(0, 3, 1, 2), a["skip"].permute(0, 3, 1, 2)
-            k_ms = cuda_ms(lambda: blend.fused_upsample_blend(**a))
-            p_ms = cuda_ms(lambda: blend.upsample_blend_reference(**a))
-            u_ms = cuda_ms(lambda: step(x_nchw, skip_nchw))
-        nbytes = (a["x"].numel() + 2 * a["skip"].numel() + a["conv_weight"].numel()) * 2
-        flops = 2.0 * b * hh * ww * 9 * 128 * 128
-        log(f"  blend {(b, hh, ww, 128)}: kernel {k_ms:.3f} ms "
-            f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.3f} ms, unfused PyTorch step "
-            f"(interpolate, add, BN, ReLU, cuDNN conv; several calls) {u_ms:.3f} ms, bound "
-            f"{1e3 * max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_TENSOR_FLOPS):.4f} ms "
-            f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
-        for k, v in (("ms", k_ms), ("plain_ms", p_ms), ("unfused_ms", u_ms),
-                     ("bytes", nbytes), ("flops", flops)):
-            t[k] += v
-        del a, step
-    t["bound_ms"] = 1e3 * max(t["bytes"] / PEAK_BYTES_PER_S, t["flops"] / PEAK_BF16_TENSOR_FLOPS)
-    t["bound_by"] = ("bytes" if t["bytes"] / PEAK_BYTES_PER_S
-                     > t["flops"] / PEAK_BF16_TENSOR_FLOPS else "operations")
-    log(f"  blend, the three steps of a forward: kernel {t['ms']:.3f} ms, plain "
-        f"{t['plain_ms']:.3f} ms, unfused {t['unfused_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
-        f"({t['bound_by']})")
-    torch.cuda.empty_cache()
-    return err_headline, t
+def blend_phase(torch, profile_blend, gen, dev):
+    """9. K5 (``csrc/blend_mma.cu``) and the first design (``csrc/blend.cu``,
+    ``wmma``) against the plain version on the card at the three decoder
+    steps of a 2048×1024 batch-8 forward that take K5, a ragged width tile,
+    B = 1 and C = 256, f32 output within 1e-3 × max|ref| and bf16 within
+    1e-2; one device operation a packed call; then their times beside the
+    plain version's, the bound and the unfused PyTorch step, through
+    ``tools/profile_blend.py``. K5 must beat the first design summed over
+    the three headline shapes. Returns K5's headline error and the times
+    (sums over the three headline shapes)."""
+    err = profile_blend.check_kernel(gen, dev, log)
+    profile_blend.device_ops(gen, dev, log)
+    t = profile_blend.time_blend(gen, dev, log)
+    check(t["ms"] < t["wmma_ms"], f"K5 ({t['ms']:.4f} ms) is not faster than the first design "
+          f"(wmma, {t['wmma_ms']:.4f} ms) over the three headline shapes")
+    return err, t
 
 
 def eval_batches(torch, dev, n, b, h, w, seed):
@@ -739,9 +678,9 @@ def main() -> int:
         return 1
     try:
         from doubly_contrastive_semseg_tpu_torch import Config, build_model, make_serving_fn
-        from doubly_contrastive_semseg_tpu_torch.ops import _build, blend, contrastive, seghead, stem
+        from doubly_contrastive_semseg_tpu_torch.ops import _build, contrastive, seghead, stem
         from doubly_contrastive_semseg_tpu_torch.tools import (
-            profile_contrastive, profile_seghead, profile_stem)
+            profile_blend, profile_contrastive, profile_seghead, profile_stem)
         from doubly_contrastive_semseg_tpu_torch.train import (
             TrainState, build_optimizer, compute_loss, make_train_step)
     except ImportError as e:
@@ -760,7 +699,7 @@ def main() -> int:
     log(f"== 1. card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     sources = ["stem_pool_tc", "stem_pool", "seghead_tc", "seghead", "row_stats", "pos_sweep",
-               "contrastive", "blend"]
+               "contrastive", "blend", "blend_mma"]
     build_logs = _build.build(sources)
     log(f"  built {', '.join(f'csrc/{n}.cu' for n in sources)} for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -962,11 +901,11 @@ def main() -> int:
 
     # 9-10. eval
     log("== 9. blend kernel (K5) vs upsample_blend_reference")
-    blend_err, blend_t = blend_phase(torch, blend, gen, dev)
+    blend_err, blend_t = blend_phase(torch, profile_blend, gen, dev)
     eval_launches = eval_phase(torch, gen, dev)
     kernels.append({
         "name": "fused_upsample_blend", "route": "cuda",
-        "source": "doubly_contrastive_semseg_tpu_torch/csrc/blend.cu",
+        "source": "doubly_contrastive_semseg_tpu_torch/csrc/blend_mma.cu",
         "replaces": "doubly_contrastive_semseg_tpu/ops/blend_pallas.py:96",
         "launches": eval_launches["fused_upsample_blend"], "max_abs_err": blend_err,
         "ms": blend_t["ms"], "plain_ms": blend_t["plain_ms"], "bound_ms": blend_t["bound_ms"],

@@ -107,7 +107,7 @@ class UpsampleBlend(nn.Module):
     under the JAX guard: eval mode, x exactly half the skip's size, at least
     64 output rows, and ``blend_kernel_supported``. The tensor's device picks
     the route, as for the stem and the head: a CUDA tensor launches the
-    kernel (``csrc/blend.cu``), a CPU tensor takes its plain version (the
+    kernel (``csrc/blend_mma.cu``), a CPU tensor takes its plain version (the
     JAX package instead keeps the unfused XLA step on the CPU backend).
     Otherwise the step runs unfused. Callers set the attribute on the
     modules; there is no config flag."""

@@ -14,8 +14,9 @@ checks that two calls give bitwise equal outputs and that a call makes
 ``POS_CASES`` (q within 1e-5 × max|q_ref|, c exact and equal to the
 segment size − 1 on valid rows) and its layout kernel to a stable
 ``torch.sort`` (bitwise); checks one layout and one sweep call a call, no
-device operation but K4's three kernels (``torch.profiler``), bitwise
-repeat and no host sync (``torch.cuda.set_sync_debug_mode("error")``).
+device operation but K4's three kernels (its capture in a CUDA graph,
+``profile_stem.captured_ops``), bitwise repeat and no host sync
+(``torch.cuda.set_sync_debug_mode("error")``).
 Then times, at N = 8192 and 16384, D = 128, ``neg_mode``, 19 labels, in
 turns: the two-pass K3, the three-sweep kernel it replaced and the plain
 version; and K4 as the whole wrapper, the sweep and reduce alone, the
@@ -34,7 +35,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import re
 import subprocess
 import sys
 import tempfile
@@ -43,7 +43,7 @@ from pathlib import Path
 import torch
 
 from ..ops import _build, contrastive
-from .profile_stem import cuda_ms
+from .profile_stem import CU_GRAPH_NODE_TYPE_KERNEL, captured_ops, cuda_ms
 from .stem_variants import _compile
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -179,8 +179,8 @@ def check_pos_sweep(gen, dev, log=print) -> dict:
     host sync, and no device operation but its own three kernels (layout,
     sweep, reduce); raises on a failure. Returns {"max_abs_err": q's error
     at N = 8192 random, "layout_max_abs_err": the layout's largest key or index
-    difference there, "device_ops": the names of the device operations of
-    one call, from ``torch.profiler``}."""
+    difference there, "device_ops": the kernel names of the device
+    operations of one call, from its capture in a CUDA graph}."""
     out = {"max_abs_err": 0.0}
     layout_fn, sweep_fn = contrastive.pos_sweep_layout, contrastive.pixel_contrast_pos_sweep
     for n, d, kind in POS_CASES:
@@ -224,18 +224,16 @@ def check_pos_sweep(gen, dev, log=print) -> dict:
             finally:
                 torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize()
-            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                contrastive.pixel_contrast_pos_sweep(z, labels, valid, m, nrm, s)
-                torch.cuda.synchronize()
-            names = [e.name for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-            out["device_ops"] = names
-            if [re.search(r"(\w+)\(", x.split("::")[-1]).group(1) if "::" in x else x
-                    for x in names] != OWN_KERNELS:
-                raise RuntimeError(f"a positive-sweep call ran other device operations: {names}")
+            ops = captured_ops(lambda: contrastive.pixel_contrast_pos_sweep(
+                z, labels, valid, m, nrm, s))
+            out["device_ops"] = [name for _, name in ops]
+            kernels = sorted(next((k for k in OWN_KERNELS if f"{len(k)}{k}" in (name or "")),
+                                  name or f"node type {kind}") for kind, name in ops)
+            if (any(kind != CU_GRAPH_NODE_TYPE_KERNEL for kind, _ in ops)
+                    or kernels != sorted(OWN_KERNELS)):
+                raise RuntimeError(f"a positive-sweep call ran other device operations: {ops}")
             log(f"  positive sweep: no host sync in a call (sync debug mode \"error\"); "
-                f"{len(names)} device operations a call: " + "; ".join(x[:60] for x in names))
+                f"{len(ops)} device operations a call, all kernels: " + "; ".join(kernels))
     log("  positive sweep: 1 layout and 1 sweep launch a call; two calls bitwise equal at "
         "every case")
     return out

@@ -18,6 +18,7 @@ phases 2 and 5 call ``check_routes`` and ``time_levels``.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -55,6 +56,62 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+class _KernelNodeParams(ctypes.Structure):   # CUDA_KERNEL_NODE_PARAMS_v2
+    _fields_ = [("func", ctypes.c_void_p), ("dims", ctypes.c_uint * 7),
+                ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def captured_ops(fn) -> list:
+    """The device operations that one call of ``fn`` enqueues, without a
+    profiler: the call is captured in a CUDA graph, whose nodes are every
+    operation it enqueued, and each node's type and, for a kernel, its
+    (mangled) name are read through ``libcuda`` (``cuGraphGetNodes``,
+    ``cuGraphNodeGetType``, ``cuGraphKernelNodeGetParams_v2``,
+    ``cuFuncGetName``). ``fn`` must already have run once, so that nothing
+    is built or loaded under capture. Returns [(node type, name or None)]
+    (type 0: kernel); raises if a driver call fails."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(name, *args):
+        status = getattr(cu, name)(*args)
+        if status != 0:
+            raise RuntimeError(f"{name} failed with CUresult {status}")
+
+    try:
+        raw = ctypes.c_void_p(graph.raw_cuda_graph())
+        n = ctypes.c_size_t(0)
+        call("cuGraphGetNodes", raw, None, ctypes.byref(n))
+        nodes = (ctypes.c_void_p * n.value)()
+        if n.value:
+            call("cuGraphGetNodes", raw, nodes, ctypes.byref(n))
+        ops = []
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+            name = None
+            if kind.value == CU_GRAPH_NODE_TYPE_KERNEL:
+                params = _KernelNodeParams()
+                call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node),
+                     ctypes.byref(params))
+                text = ctypes.c_char_p()
+                if params.func:
+                    call("cuFuncGetName", ctypes.byref(text), ctypes.c_void_p(params.func))
+                else:
+                    call("cuKernelGetName", ctypes.byref(text), ctypes.c_void_p(params.kern))
+                name = text.value.decode()
+            ops.append((kind.value, name))
+    finally:
+        graph.reset()
+    return ops
 
 
 def stem_params(gen, dev):
