@@ -49,6 +49,20 @@ with the unfused path up to the flipped pixels, a 1920×1080 batch launches
 K5 never, a small f32 batch agrees with the CPU's eval step, and eval
 throughput fused and unfused (phase 10).
 
+Then the data path the trainer runs with on-device augmentation
+(``host_augment=False``): the jump-flood EDT kernel (JF, ``csrc/jfa.cu``)
+bit for bit against its plain version on 8 synthetic 768² label crops and
+the same with 5 % salt noise, 88 kernel nodes a call, and its time
+(phase 11, ``tools/profile_jfa.py``); two epochs of 6 flagship train
+steps fed by the port's synthetic dataset at 1024×2048 through
+``DataLoader`` → ``to_device`` → ``augment_batch`` (768² crops, two views,
+JF's 88 launches a step) → ``make_train_step``, timed by stage, the first
+epoch generating the frames and the second finding them cached (phase
+12); and the same dataset's val split, twice, through ``DataLoader`` →
+``make_eval_step`` with K5 on the decoder → ``Evaluator`` (phase 13). Before anything else it
+prints which of PIL, cv2 and scipy import (the port uses none of them);
+phase 4 also serves the batch in the planar and space-to-depth layouts.
+
 Any failure raises and exits non-zero; so does a machine without CUDA or a
 directory without the package. The last line is ``{"ok": true, "device":
 {...}}``; the line before it lists each kernel's launches, error and times.
@@ -67,6 +81,7 @@ TRAIN_BATCH, TRAIN_CROP = 8, 768       # the published recipe (JAX config.py:98,
 DENSE_BATCH, DENSE_CROP = 216, 96      # 216·19·2 = 8208 ≥ 8192 pixel-contrast rows
 KERNEL_N, D_FEAT = 8192, 128
 VAL_HEIGHT, VAL_WIDTH = 1080, 1920      # the JAX default val shape (config.py:104-105)
+SYNTHETIC_HW, SYNTHETIC_SIZE = "1024x2048", 48   # crop_wh: the published 768²
 
 
 def check(cond: bool, msg: str) -> None:
@@ -669,6 +684,197 @@ def eval_phase(torch, gen, dev):
     return eval_launches
 
 
+def host_libraries() -> str:
+    """Which of PIL, cv2 and scipy import here, each tried in a fresh
+    interpreter so that none of them loads into this one."""
+    code = ("import importlib, json\nok = {}\nfor m in ('PIL', 'cv2', 'scipy'):\n"
+            "    try:\n        importlib.import_module(m)\n        ok[m] = True\n"
+            "    except Exception:\n        ok[m] = False\nprint(json.dumps(ok))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    return out.stdout.strip() or f"unknown ({out.stderr.strip()[-200:]})"
+
+
+def s2d_pack(x):
+    """(B, H, W, 3) → (B, H/2, W/2, 12), channel c*4 + i0*2 + j0 holding
+    pixel (2y + i0, 2x + j0) of channel c (JAX ``s2d_pack``)."""
+    b, h, w, _ = x.shape
+    return (x.reshape(b, h // 2, 2, w // 2, 2, 3).permute(0, 1, 3, 5, 2, 4)
+            .reshape(b, h // 2, w // 2, 12).contiguous())
+
+
+def layouts_check(torch, serve, image, labels, stem, seghead):
+    """4b. The serving batch in the planar (B, 3, H, W) and s2d layouts:
+    the same labels as NHWC, K2 and K1 launched 3 and 1 times each."""
+    for name, x in (("planar", image.permute(0, 3, 1, 2).contiguous()),
+                    ("s2d", s2d_pack(image))):
+        before = (stem.fused_stem_pool.launches, seghead.fused_seghead_upsample_argmax.launches)
+        got = serve(x)
+        torch.cuda.synchronize()
+        k2 = stem.fused_stem_pool.launches - before[0]
+        k1 = seghead.fused_seghead_upsample_argmax.launches - before[1]
+        same = torch.equal(got, labels)
+        log(f"  layout {name} {tuple(x.shape)}: labels {tuple(got.shape)} identical to NHWC: "
+            f"{same}; launches K2 {k2}, K1 {k1}")
+        check(same and k2 == 3 and k1 == 1,
+              f"serving the {name} layout must give the NHWC labels through K2 3 times and K1 once")
+
+
+def jfa_phase(torch, profile_jfa, gen, dev):
+    """11. JF against its plain version, its device operations and times
+    (``tools/profile_jfa.py``). Returns (max abs err, times)."""
+    log("== 11. jump-flood EDT kernel (JF) vs nearest_diff_label_distance_reference")
+    err = profile_jfa.check_kernel(gen, dev, log)
+    profile_jfa.device_ops(dev, log)
+    return err, profile_jfa.time_jfa(gen, dev, log)
+
+
+def loader_train_phase(torch, dev):
+    """12. The flagship step fed by the loader: synthetic frames →
+    ``DataLoader`` → ``to_device`` → ``augment_batch`` → ``make_train_step``,
+    2 epochs of 6 steps. Returns (the model, its config, the val dataset,
+    JF's launches in the 12 steps)."""
+    from doubly_contrastive_semseg_tpu_torch import Config, build_model
+    from doubly_contrastive_semseg_tpu_torch.data import (DataLoader, augment_batch, get_dataset,
+                                                          to_device)
+    from doubly_contrastive_semseg_tpu_torch.ops import blend, contrastive, edt, seghead, stem
+    from doubly_contrastive_semseg_tpu_torch.train import (TrainState, build_optimizer,
+                                                           make_train_step)
+
+    cfg = Config(dataset="synthetic", synthetic_hw=SYNTHETIC_HW, synthetic_size=SYNTHETIC_SIZE,
+                 host_augment=False, criterion=CRITERION, batch_size=TRAIN_BATCH, num_workers=4)
+    crop = cfg.crop_wh[0]
+    check(crop == TRAIN_CROP and cfg.efficient and cfg.compute_dtype == "bfloat16",
+          "the loader-fed step must run the flagship recipe")
+    log(f"== 12. loader-fed flagship train step: synthetic {SYNTHETIC_HW} frames "
+        f"(size {SYNTHETIC_SIZE}), {cfg.num_workers} loader workers, on-device crops {crop}², "
+        f"batch {cfg.batch_size} x 2 views, bf16, efficient, {CRITERION}")
+    torch.backends.cudnn.benchmark = True
+    train_dst, val_dst = get_dataset(cfg, seed=cfg.random_seed)
+    loader = DataLoader(train_dst, cfg.batch_size, shuffle=cfg.shuffle,
+                        num_workers=cfg.num_workers, drop_last=True, seed=cfg.random_seed)
+    class_weight = torch.ones(cfg.num_classes)   # JAX trainer.py:64-68 for synthetic data
+    model = build_model(cfg, device=dev, seed=0)
+    opt = build_optimizer(model, cfg, steps_per_epoch=len(loader))
+    state = TrainState(model, opt)
+    train_step = make_train_step(model, cfg, opt)
+    aug_gen = torch.Generator(device=dev).manual_seed(cfg.random_seed + 1)
+    anchors = torch.Generator(device=dev).manual_seed(0)
+    jf = edt.nearest_diff_label_distance
+    per_step = len(edt.jfa_launches(crop, crop))     # 88 at 768²
+    others = (contrastive.contrastive_row_stats, contrastive.pos_sweep_layout,
+              contrastive.pixel_contrast_pos_sweep, stem.fused_stem_pool,
+              seghead.fused_seghead_upsample_argmax, blend.fused_upsample_blend)
+    for fn in (jf, *others):
+        fn.launches = 0
+    # epoch 0 generates every frame; epoch 1 finds them in the dataset's
+    # cache, so its wait is the loader's own cost (sampling, collate)
+    n_steps = 0
+    for epoch in range(2):
+        loader.set_epoch(epoch)
+        split, it = [], iter(loader)
+        t_wait = time.perf_counter()
+        for i in range(len(loader)):
+            batch = next(it)
+            t0 = time.perf_counter()
+            if epoch == 0 and i == 2:
+                torch.cuda.reset_peak_memory_stats()
+            before = jf.launches
+            db = to_device(batch, dev, class_weight)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            db.update(augment_batch(db["left"], db["label"], db["weather"], aug_gen, crop=crop,
+                                    num_classes=cfg.num_classes, two_crop=cfg.use_supcon,
+                                    use_gamma=cfg.use_gamma_correction))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            metrics = train_step(state, db, anchors)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            split.append((t0 - t_wait, t1 - t0, t2 - t1, t3 - t2))
+            comps = {k: v.item() for k, v in metrics.items()}
+            check(tuple(db["left"].shape) == (2 * cfg.batch_size, crop, crop, 3)
+                  and tuple(db["label_distance_weight"].shape) == (cfg.batch_size, crop, crop),
+                  "the augmented batch's shapes")
+            check(all(map(lambda v: v == v and abs(v) < float("inf"), comps.values())),
+                  f"loader-fed step {i}: a loss is not finite: {comps}")
+            log(f"  epoch {epoch} step {i}: loader wait {1e3 * split[-1][0]:.1f} ms, to_device "
+                f"{1e3 * split[-1][1]:.1f} ms, augmentation {1e3 * split[-1][2]:.1f} ms (JF "
+                f"launches {jf.launches - before}), train step {1e3 * split[-1][3]:.1f} ms; "
+                + ", ".join(f"{k} {v:.4f}" for k, v in comps.items()))
+            check(jf.launches - before == per_step,
+                  f"each {crop}² train step must launch JF {per_step} times")
+            t_wait = time.perf_counter()
+        check(next(it, None) is None, "the loader must end after len(loader) batches")
+        n_steps += len(split)
+        timed = split[2:]
+        mean = [1e3 * sum(s[j] for s in timed) / len(timed) for j in range(4)]
+        total = sum(mean)
+        log(f"  epoch {epoch} ({'frames generated' if epoch == 0 else 'frames cached'}), steps "
+            f"2-{len(split) - 1}: {total:.2f} ms a step = loader wait {mean[0]:.2f} + to_device "
+            f"{mean[1]:.2f} + augmentation {mean[2]:.2f} + train step {mean[3]:.2f} ms; "
+            f"{cfg.batch_size * 1e3 / total:.2f} samples/s "
+            f"({cfg.batch_size * 1e3 / (total - mean[0]):.2f} without the wait)")
+    other_launches = {fn.__name__: fn.launches for fn in others}
+    log(f"  launches in {n_steps} steps: JF {jf.launches}, the others {other_launches} "
+        f"(the flagship step takes the plain contrastive route and the unfused stem)")
+    check(not any(other_launches.values()), "the loader-fed step must launch no kernel but JF")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], check=True, capture_output=True, text=True).stdout.strip()
+    log(f"  peak memory {peak_gb:.2f} GB; sm clock, power, temp after: {clocks}")
+    return model, cfg, val_dst, jf.launches
+
+
+def loader_eval_phase(torch, dev, model, cfg, val_dst):
+    """13. The val split through ``DataLoader`` → ``to_device`` →
+    ``make_eval_step`` (K5 on the decoder) → ``Evaluator``."""
+    from doubly_contrastive_semseg_tpu_torch.data import DataLoader, to_device
+    from doubly_contrastive_semseg_tpu_torch.metrics import Evaluator
+    from doubly_contrastive_semseg_tpu_torch.ops import blend, stem
+    from doubly_contrastive_semseg_tpu_torch.tools.profile_eval import set_fused
+    from doubly_contrastive_semseg_tpu_torch.train import init_eval_accum, make_eval_step
+
+    loader = DataLoader(val_dst, cfg.val_batch_size, shuffle=False, num_workers=cfg.num_workers)
+    log(f"== 13. loader-fed eval: the synthetic val split, {len(val_dst)} frames at "
+        f"{SYNTHETIC_HW}, batches of {cfg.val_batch_size}, {cfg.compute_dtype}, fused blends")
+    set_fused(model, True)
+    step = make_eval_step(model, cfg)
+    # pass 0 generates the frames and tunes cuDNN for both batch sizes;
+    # pass 1 (frames cached in the dataset) is timed
+    for epoch in range(2):
+        accum = init_eval_accum(cfg, device=dev)
+        frames, step_s = 0, 0.0
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        for i, batch in enumerate(loader):
+            before = (stem.fused_stem_pool.launches, blend.fused_upsample_blend.launches)
+            t0 = time.perf_counter()
+            preds, accum = step(to_device(batch, dev), accum)
+            torch.cuda.synchronize()
+            step_s += time.perf_counter() - t0
+            k2 = stem.fused_stem_pool.launches - before[0]
+            k5 = blend.fused_upsample_blend.launches - before[1]
+            b = batch["left"].shape[0]
+            frames += b
+            log(f"  pass {epoch} batch {i}: {b} frames {tuple(batch['left'].shape[1:3])}, "
+                f"launches K2 {k2}, K5 {k5}")
+            check(k2 == 3 and k5 == 3, "each loader-fed eval batch must launch K2 and K5 3 times")
+        wall = time.perf_counter() - t_start
+        check(frames == len(val_dst), "the eval loader must deliver every val frame once")
+        log(f"  pass {epoch}: {frames / wall:.2f} frames/s end to end (loader included), "
+            f"{frames / step_s:.2f} frames/s in to_device and the eval steps")
+    host = {k: v.cpu() for k, v in accum.items()}
+    evaluator = Evaluator(cfg.num_classes, cfg.weather_num)
+    evaluator.merge_device_batch(host["cm"], host["cm_weather_sem"], host["cm_weather"],
+                                 weather_acc=float(host["weather_acc_sum"])
+                                 / max(float(host["n_batches"]), 1.0))
+    miou = evaluator.Mean_Intersection_over_Union()
+    check(miou == miou and 0 <= miou <= 1, f"mIoU {miou}")
+    log(f"  loader-fed eval: mIoU {miou:.5f} over the {frames} frames of pass 1")
+
+
 def main() -> int:
     import torch
 
@@ -680,13 +886,14 @@ def main() -> int:
         from doubly_contrastive_semseg_tpu_torch import Config, build_model, make_serving_fn
         from doubly_contrastive_semseg_tpu_torch.ops import _build, contrastive, seghead, stem
         from doubly_contrastive_semseg_tpu_torch.tools import (
-            profile_blend, profile_contrastive, profile_seghead, profile_stem)
+            profile_blend, profile_contrastive, profile_jfa, profile_seghead, profile_stem)
         from doubly_contrastive_semseg_tpu_torch.train import (
             TrainState, build_optimizer, compute_loss, make_train_step)
     except ImportError as e:
         print(f"chip_smoke: the port's package is not importable here: {e}",
               file=sys.stderr)
         return 1
+    log(f"== 0. host libraries importable here (the port uses none): {host_libraries()}")
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
@@ -699,7 +906,7 @@ def main() -> int:
     log(f"== 1. card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     sources = ["stem_pool_tc", "stem_pool", "seghead_tc", "seghead", "row_stats", "pos_sweep",
-               "contrastive", "blend", "blend_mma"]
+               "contrastive", "blend", "blend_mma", "jfa"]
     build_logs = _build.build(sources)
     log(f"  built {', '.join(f'csrc/{n}.cu' for n in sources)} for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -743,6 +950,7 @@ def main() -> int:
     check(labels.shape == (BATCH, HEIGHT, WIDTH) and labels.dtype == torch.int8,
           f"labels {tuple(labels.shape)} {labels.dtype}")
     check(0 <= labels.min().item() and labels.max().item() < 19, "label range")
+    layouts_check(torch, serve, image, labels, stem, seghead)
 
     # the same weights on the plain path, on the card
     plain = build_model(Config(fuse_stem=False), device=dev, seed=0)
@@ -910,6 +1118,17 @@ def main() -> int:
         "launches": eval_launches["fused_upsample_blend"], "max_abs_err": blend_err,
         "ms": blend_t["ms"], "plain_ms": blend_t["plain_ms"], "bound_ms": blend_t["bound_ms"],
         "bound_by": blend_t["bound_by"], "library_ms": None})
+
+    # 11-13. the loader-fed data path
+    jf_err, jf_t = jfa_phase(torch, profile_jfa, gen, dev)
+    model, cfg, val_dst, jf_launches = loader_train_phase(torch, dev)
+    loader_eval_phase(torch, dev, model, cfg, val_dst)
+    del model
+    kernels.append({
+        "name": "nearest_diff_label_distance", "route": "cuda",
+        "source": "doubly_contrastive_semseg_tpu_torch/csrc/jfa.cu",
+        "replaces": "doubly_contrastive_semseg_tpu/ops/edt.py:88",
+        "launches": jf_launches, "max_abs_err": jf_err, **jf_t})
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

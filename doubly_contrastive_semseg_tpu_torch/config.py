@@ -7,11 +7,35 @@ no command line yet, so there is no argparse surface here.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
+from typing import Tuple
 
 
 @dataclass
 class Config:
+    # -- data (JAX config.py:71-75, 92-111, 155-157, 172, 180-184)
+    data_root: str = os.path.join(os.path.expanduser("~"), "dataset")
+    num_workers: int = 4
+    # class weights: w = 1 / log(1 + epsilon + pixel frequency)
+    epsilon: float = 1e-1
+    use_balanced_weights: bool = True
+    val_batch_size: int = 8
+    crop_size: int = 384
+    val_img_width: int = 1920
+    val_img_height: int = 1080
+    random_seed: int = 1
+    debug: bool = False
+    use_gamma_correction: bool = False
+    # the host PIL/cv2 pipeline; False augments on the device
+    # (data/device_augment.py), the one route the port has so far
+    host_augment: bool = True
+    # train-loader shuffling; False pins list order
+    shuffle: bool = True
+    # the synthetic dataset: train samples and generated frame HxW
+    synthetic_size: int = 64
+    synthetic_hw: str = "128x160"
+
     # -- model
     model: str = "resnet18"
     num_classes: int = 19
@@ -61,3 +85,19 @@ class Config:
     @property
     def use_pixelcontrast(self) -> bool:
         return "pixelcontrast" in self.criterion
+
+    @property
+    def crop_wh(self) -> Tuple[int, int]:
+        """The train random crop: (768, 768) for the semantic datasets
+        (reference ``dataloaders/utils.py:110-112``); for synthetic data
+        (96, 96) on frames under 768 rows and the published 768² above.
+        (JAX's city_lost 1024×512 crop waits for that dataset, ``ROADMAP.md``
+        §1 item 1b.)"""
+        if self.dataset == "synthetic":
+            h = int(self.synthetic_hw.split("x")[0])
+            return (96, 96) if h < 768 else (768, 768)
+        return (768, 768)
+
+    @property
+    def val_wh(self) -> Tuple[int, int]:
+        return (self.val_img_width, self.val_img_height)

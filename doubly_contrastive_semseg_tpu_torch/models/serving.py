@@ -16,7 +16,7 @@ from typing import Callable
 
 import torch
 
-from ..ops.input_pipeline import upsample4x_argmax
+from ..ops.input_pipeline import image_hw, upsample4x_argmax
 from ..ops.interpolate import resize_bilinear
 from ..ops.seghead import fused_seghead_upsample_argmax
 from .weathernet import DCSSModel
@@ -24,7 +24,8 @@ from .weathernet import DCSSModel
 
 def make_serving_fn(model: DCSSModel, device="cuda", use_fused_head: bool = True) -> Callable:
     """Returns ``serve(image) -> (B, H, W) int8`` for a ``DCSSModel`` on
-    ``device``; ``image`` is (B, H, W, 3) pixels (a tensor or an array).
+    ``device``; ``image`` is pixels (a tensor or an array) in NHWC, planar
+    or s2d layout (``ops/input_pipeline.py::to_nhwc``).
     ``use_fused_head`` is JAX's ``use_pallas_head``: the fused head serves
     images that are 4× the features and have at least 10 feature rows.
     Runs on the card unless ``device`` asks for the CPU."""
@@ -38,7 +39,7 @@ def make_serving_fn(model: DCSSModel, device="cuda", use_fused_head: bool = True
     @torch.no_grad()
     def serve(image) -> torch.Tensor:
         x = torch.as_tensor(image, device=device)
-        size = tuple(x.shape[1:3])
+        size = image_hw(x)
         feat, _ = model.net.feature_extractor(x)   # (B, 128, h, w)
         h, w = feat.shape[2:]
         if use_fused_head and h >= 10 and (4 * h, 4 * w) == size:

@@ -13,6 +13,7 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
+from ..ops.input_pipeline import image_hw
 from ..ops.interpolate import resize_bilinear
 from .blocks import BNReluConv, init_weights
 from .resnet_pyramid import resnet18_pyramid, resnet34_pyramid
@@ -60,7 +61,7 @@ class WeatherNet(nn.Module):
     input size (reference ``network/weathernet.py:60-98``)."""
 
     def __init__(self, backbone: str = "resnet18", num_classes: int = 19,
-                 fuse_stem: bool = True, efficient: bool = False,
+                 fuse_stem: bool = True, efficient: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if backbone == "resnet18":
@@ -83,7 +84,7 @@ class WeatherNet(nn.Module):
         feat0 = feat[:feat.shape[0] // 2] if return_supcon_feature else feat
         seg_beforeup = self.seg_logits(feat0)
         return {
-            "seg": resize_bilinear(seg_beforeup, tuple(image.shape[1:3])),
+            "seg": resize_bilinear(seg_beforeup, image_hw(image)),
             "seg_beforeup": seg_beforeup,
             "fine_feat": _nhwc(feat),
             "fine_feat0": _nhwc(feat0),
@@ -99,13 +100,14 @@ class WeatherNet(nn.Module):
 class DCSSModel(nn.Module):
     """WeatherNet plus the weather classifier and, with ``projection``, the
     SupCon projection head, with the JAX ``DCSSModel``'s outputs. ``image``
-    is (B, H, W, 3) pixels; parameters are float32 and activations run in
+    is pixels in NHWC, planar or s2d layout (``ops/input_pipeline.py::
+    to_nhwc``), as in JAX; parameters are float32 and activations run in
     ``dtype``. The JAX model's parameter tree holds ``projection`` exactly
     when it was initialised with ``return_supcon_feature=True``."""
 
     def __init__(self, backbone: str = "resnet18", num_classes: int = 19,
                  weather_num: int = 4, fuse_stem: bool = True,
-                 efficient: bool = False, projection: bool = False,
+                 efficient: bool = True, projection: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.net = WeatherNet(backbone, num_classes, fuse_stem, efficient, dtype)

@@ -1,10 +1,15 @@
-"""Input normalisation, the image pyramid and the ×4 upsample + argmax.
+"""Input layouts, normalisation, the image pyramid and the ×4 upsample +
+argmax.
 
-Counterpart of the JAX package's ``ops/input_pipeline.py``. The space-to-depth
-packing there (and its dy-major / c-major channel orders) is a layout device
-for the TPU's 128-lane vector unit: the port's stem kernel reads the dense
-NHWC level directly, so only the mapping between the dense 7×7 stem kernel
-and the JAX model's s2d form is kept, for the weight converter.
+Counterpart of the JAX package's ``ops/input_pipeline.py``. The model takes
+an image in any of JAX's three layouts: NHWC (B, H, W, 3), planar
+(B, 3, H, W), and space-to-depth (B, H/2, W/2, 12) packed by JAX's
+``s2d_pack``. The space-to-depth packing (and its dy-major / c-major channel
+orders) is a layout device for the TPU's 128-lane vector unit: the port's
+stem kernel reads the dense NHWC level, so ``to_nhwc`` unpacks the other
+two layouts on the device first (a permutation, exact), and only the
+mapping between the dense 7×7 stem kernel and the JAX model's s2d form is
+kept, for the weight converter.
 """
 
 from __future__ import annotations
@@ -23,8 +28,45 @@ IMAGENET_MEAN = (73.15, 82.90, 72.3)
 IMAGENET_STD = (47.67, 48.49, 47.73)
 
 
+def is_planar_image(x) -> bool:
+    """(B, 3, H, W) rather than (B, H, W, 3) (JAX ``is_planar_image``)."""
+    return x.ndim == 4 and x.shape[1] == 3 and x.shape[3] not in (3, 12)
+
+
+def is_s2d_image(x) -> bool:
+    """(B, H/2, W/2, 12): an image packed into space-to-depth(2) cells by
+    JAX's ``s2d_pack`` (JAX ``is_s2d_image``)."""
+    return x.ndim == 4 and x.shape[-1] == 12
+
+
+def image_hw(x) -> Tuple[int, int]:
+    """(H, W) of an image in any of the three layouts (JAX ``image_hw``)."""
+    if is_planar_image(x):
+        return (x.shape[2], x.shape[3])
+    if is_s2d_image(x):
+        return (2 * x.shape[1], 2 * x.shape[2])
+    return (x.shape[1], x.shape[2])
+
+
+def to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """An image in any of the three layouts → (B, H, W, 3) on its device.
+    A planar image is transposed; an s2d image, channel ``c*4 + i0*2 + j0``
+    of cell (y, x) holding pixel (2y + i0, 2x + j0) of channel c, is
+    unpacked. Both come out contiguous, so that every layout of one image
+    runs the same arithmetic; an NHWC image is returned as it is."""
+    if is_planar_image(x):
+        return x.permute(0, 2, 3, 1).contiguous()
+    if is_s2d_image(x):
+        b, h2, w2, _ = x.shape
+        return (x.reshape(b, h2, w2, 3, 2, 2).permute(0, 1, 4, 2, 5, 3)
+                .reshape(b, 2 * h2, 2 * w2, 3).contiguous())
+    return x
+
+
 def normalize(image: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, 3) pixels → float32 ``(x - IMAGENET_MEAN) / IMAGENET_STD``."""
+    """Pixels in any layout (``to_nhwc``) → (B, H, W, 3) float32
+    ``(x - IMAGENET_MEAN) / IMAGENET_STD``."""
+    image = to_nhwc(image)
     m = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=image.device)
     s = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=image.device)
     return (image.float() - m) / s
@@ -39,7 +81,9 @@ def build_pyramid(image: torch.Tensor, levels: int,
     size the JAX model's space-to-depth(2) pyramid (``fused_pyramid_s2d``)
     gives it, ``pyramid_hw``; where that is larger than the bicubic level,
     the extra row or column is the bicubic formula read with the border
-    clamped, as JAX's clamp padding gives it."""
+    clamped, as JAX's clamp padding gives it. ``image`` may come in any
+    of the three layouts (``to_nhwc``)."""
+    image = to_nhwc(image)
     xn = normalize(image)
     out = []
     for lv in range(levels):

@@ -15,11 +15,13 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from doubly_contrastive_semseg_tpu.models import DCSSModel as JaxDCSSModel  # noqa: E402
+from doubly_contrastive_semseg_tpu.ops.input_pipeline import s2d_pack  # noqa: E402
 from doubly_contrastive_semseg_tpu.models.weathernet import (  # noqa: E402
     ProjectionHead as JaxProjectionHead)
 from doubly_contrastive_semseg_tpu.utils.torch_convert import (  # noqa: E402
     convert_reference_weathernet, jax_to_py)
-from doubly_contrastive_semseg_tpu_torch import Config, build_model  # noqa: E402
+from doubly_contrastive_semseg_tpu_torch import Config, DCSSModel, build_model  # noqa: E402
+from doubly_contrastive_semseg_tpu_torch import make_serving_fn  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.models import ProjectionHead  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.ops import fused_stem_pool  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.utils import from_jax_variables  # noqa: E402
@@ -153,3 +155,71 @@ def test_projection_head_matches_jax(rng):
 def test_unported_backbone_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(Config(model="mobilenetv2"), device="cpu")
+
+
+def test_default_model_bn_stats_match_jax_after_train_step(rng):
+    """``DCSSModel()`` with its defaults against JAX ``DCSSModel()`` with its
+    own, JAX's initial variables carried over: one training-mode forward
+    and backward at (2, 64, 64, 3). Both default to ``efficient=True`` (the
+    reference's hard-coded checkpointing), whose recompute updates each
+    BasicBlock's bn1/bn2 twice; a default of False updates them once, which
+    leaves ``layer1.0.bn1.running_mean`` 0.43 of its largest entry off.
+
+    Held: the running stats of the stem BNs and of layer1 and layer2,
+    within 1e-5 of the tensor's largest entry (measured: at most 1.6e-6).
+    Not held here: layer3, layer4 and the decoder. At this size their
+    coarsest pyramid level has 1 or 2 pixels a channel, so their batch
+    variances come from 2 to 8 values and carry the two f32 forwards'
+    difference up to 0.2 of their scale; ``test_torch_train.py`` holds
+    every BN stat after a full train step at 128², 4 images."""
+    shape = (2, 64, 64, 3)
+    jmodel = JaxDCSSModel()
+    v = jmodel.init(jax.random.PRNGKey(0), jnp.zeros(shape), train=False)
+    params, stats = jax_to_py(v["params"]), jax_to_py(v["batch_stats"])
+    x = rng.uniform(0, 255, shape).astype(np.float32)
+    _, mutated = jmodel.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
+                              train=True, mutable=["batch_stats"])
+    held = ("net.feature_extractor.bn1_", "net.feature_extractor.layer1.",
+            "net.feature_extractor.layer2.")
+    want = {k: v.numpy() for k, v in
+            from_jax_variables({}, jax_to_py(mutated["batch_stats"])).items()
+            if k.startswith(held) and not k.endswith("num_batches_tracked")}
+
+    model = DCSSModel()
+    model.load_state_dict(from_jax_variables(params, stats), strict=True)
+    model.train()
+    out = model(torch.from_numpy(x))
+    (out["seg"].sum() + out["weather_logits"].sum()).backward()
+    got = model.state_dict()
+    assert len(want) == 2 * (3 + 2 * 2 * 2 + 1) and "net.feature_extractor.layer1.0.bn1.running_mean" in want
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=k)
+
+
+def test_image_layouts_give_the_same_seg(rng):
+    """NHWC, planar (B, 3, H, W) and s2d (B, H/2, W/2, 12, JAX ``s2d_pack``)
+    images, f32, (1, 64, 128): the port's ``seg`` is bitwise equal across
+    the three, each within 1e-4 × max|logit| of JAX's ``seg`` for the same
+    layout, and ``make_serving_fn`` gives the same labels for all three."""
+    shape = (1, 64, 128, 3)
+    jmodel, params, stats = jax_variables(rng, shape)
+    x = rng.uniform(0, 255, shape).astype(np.float32)
+    layouts = {"nhwc": x, "planar": np.ascontiguousarray(x.transpose(0, 3, 1, 2)),
+               "s2d": s2d_pack(x)}
+    model = port_model(params, stats)
+    serve = make_serving_fn(model, device="cpu")
+    segs, labels = {}, {}
+    for name, img in layouts.items():
+        want = np.asarray(jmodel.apply({"params": params, "batch_stats": stats},
+                                       jnp.asarray(img), train=False)["seg"])
+        with torch.no_grad():
+            segs[name] = model(torch.from_numpy(img))["seg"].numpy()
+        labels[name] = serve(torch.from_numpy(img))
+        assert segs[name].shape == want.shape == (1, 64, 128, 19), name
+        np.testing.assert_allclose(segs[name], want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max(), err_msg=name)
+    for name in ("planar", "s2d"):
+        np.testing.assert_array_equal(segs[name], segs["nhwc"], err_msg=name)
+        assert torch.equal(labels[name], labels["nhwc"]), name
+    assert labels["nhwc"].shape == (1, 64, 128)
