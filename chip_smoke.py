@@ -63,6 +63,21 @@ epoch generating the frames and the second finding them cached (phase
 prints which of PIL, cv2 and scipy import (the port uses none of them);
 phase 4 also serves the batch in the planar and space-to-depth layouts.
 
+Then the default input path (``host_augment=True``), all of it host code:
+the times on the card's host of ``read_png`` on a 1080×1920 frame by PNG
+filter, the crop-and-scale at three box scales and the chamfer EDT weights
+of a 768² crop (phase 14, ``tools/profile_host_data.py``); three epochs of
+3 flagship steps (4 loader threads, 4, then 1) fed by the synthetic
+1024×2048 dataset through the host train transforms (768² crops, two
+views, EDT weights on the host, no kernel launched), timed by stage (phase
+15); and an ACDC tree of 1080×1920 PNGs written with ``write_png`` (every
+frame with the five filters in turns down its rows, night frames, the
+file lists), read back exactly, trained on for two epochs of 3 steps (4
+loader threads, then 1) through ``get_dataset("acdc")`` with gamma on, K2
+held to its plain version at the levels of 1920×1080 batches of 8 and 4,
+and the val split through ``make_eval_step`` into the ``Evaluator``, K2
+launching 3 times a batch (phase 16).
+
 Any failure raises and exits non-zero; so does a machine without CUDA or a
 directory without the package. The last line is ``{"ok": true, "device":
 {...}}``; the line before it lists each kernel's launches, error and times.
@@ -73,7 +88,10 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
+
+import numpy as np
 
 BATCH, HEIGHT, WIDTH = 8, 1024, 2048
 CRITERION = "supcon_pixelcontrast_focal"
@@ -82,6 +100,8 @@ DENSE_BATCH, DENSE_CROP = 216, 96      # 216·19·2 = 8208 ≥ 8192 pixel-contra
 KERNEL_N, D_FEAT = 8192, 128
 VAL_HEIGHT, VAL_WIDTH = 1080, 1920      # the JAX default val shape (config.py:104-105)
 SYNTHETIC_HW, SYNTHETIC_SIZE = "1024x2048", 48   # crop_wh: the published 768²
+HOST_SIZE = 24                          # host-augmented synthetic: 3 steps an epoch
+ACDC_TRAIN, ACDC_VAL = 24, 12           # ACDC from PNG: 3 steps an epoch, val batches 8 + 4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -875,6 +895,194 @@ def loader_eval_phase(torch, dev, model, cfg, val_dst):
     log(f"  loader-fed eval: mIoU {miou:.5f} over the {frames} frames of pass 1")
 
 
+def host_data_phase(profile_host_data):
+    """14. The host side of the default input path on this machine's CPU
+    (``tools/profile_host_data.py``): PNG decoding of a 1080×1920 frame by
+    filter, the crop-and-scale at three box scales, the chamfer and the EDT
+    weights of a 768² crop."""
+    log(f"== 14. host data path on the card's host ({profile_host_data.cpu_name()}): "
+        "PNG decode, crop-and-scale, chamfer")
+    with tempfile.TemporaryDirectory() as base:
+        decode = profile_host_data.time_decode(base)
+    log("  read_png of a 1080x1920 frame (RGB), ms by filter: "
+        + ", ".join(f"{k[4:-3]} {v:.1f}" for k, v in decode.items() if k.startswith("rgb_"))
+        + f"; the labelIds map (grey, Pillow's filter choice) {decode['label_adaptive_ms']:.1f} ms")
+    tr = profile_host_data.time_transforms()
+    log(f"  crop-and-scale to 768² (image bicubic + label nearest), ms at box scale 0.5 / 1 / 2: "
+        f"{tr['crop_scale_0.5_ms']:.1f} / {tr['crop_scale_1_ms']:.1f} / "
+        f"{tr['crop_scale_2_ms']:.1f}; chamfer of a 768² crop {tr['chamfer_ms']:.1f} ms, "
+        f"LabelBoundaryTransform {tr['label_boundary_ms']:.1f} ms")
+    log("  host data " + json.dumps({"cpu": profile_host_data.cpu_name(), **decode, **tr}))
+
+
+def host_fed_steps(torch, dev, cfg, train_dst, what: str, workers=(4, 4)):
+    """Flagship train steps fed by the host train transforms: ``DataLoader``
+    → ``to_device`` → ``make_train_step``, one epoch for each entry of
+    ``workers`` with that many loader threads, each step timed by stage,
+    after one sample timed alone on this thread. Checks the two-view batch,
+    the EDT weights (in [0, 1], 0 at ignore), finite losses and that no
+    kernel launches (the host computes the EDT weights; the flagship losses
+    take the plain route). Returns the model."""
+    from doubly_contrastive_semseg_tpu_torch import build_model
+    from doubly_contrastive_semseg_tpu_torch.data import DataLoader, to_device
+    from doubly_contrastive_semseg_tpu_torch.ops import blend, contrastive, edt, seghead, stem
+    from doubly_contrastive_semseg_tpu_torch.train import (TrainState, build_optimizer,
+                                                           make_train_step)
+
+    crop = cfg.crop_wh[0]
+    train_dst[0]                      # a synthetic frame is generated (and kept) here
+    t0 = time.perf_counter()
+    train_dst[0]
+    log(f"  one sample (two views) on this thread, no loader: "
+        f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+    class_weight = torch.ones(cfg.num_classes)
+    model = build_model(cfg, device=dev, seed=0)
+    opt = build_optimizer(model, cfg, steps_per_epoch=len(train_dst) // cfg.batch_size)
+    state = TrainState(model, opt)
+    train_step = make_train_step(model, cfg, opt)
+    anchors = torch.Generator(device=dev).manual_seed(0)
+    counted = (edt.nearest_diff_label_distance, contrastive.contrastive_row_stats,
+               contrastive.pos_sweep_layout, contrastive.pixel_contrast_pos_sweep,
+               stem.fused_stem_pool, seghead.fused_seghead_upsample_argmax,
+               blend.fused_upsample_blend)
+    for fn in counted:
+        fn.launches = 0
+    for epoch, n_workers in enumerate(workers):
+        loader = DataLoader(train_dst, cfg.batch_size, shuffle=cfg.shuffle,
+                            num_workers=n_workers, drop_last=True, seed=cfg.random_seed)
+        loader.set_epoch(epoch)
+        split, it = [], iter(loader)
+        t_wait = time.perf_counter()
+        for i in range(len(loader)):
+            batch = next(it)
+            t0 = time.perf_counter()
+            b = cfg.batch_size
+            w = batch["label_distance_weight"]
+            check(batch["left"].shape == (2 * b, crop, crop, 3) and batch["left"].dtype == np.uint8
+                  and batch["label"].shape == (b, crop, crop) and w.shape == (b, crop, crop)
+                  and w.dtype == np.float32, f"{what}: the host-augmented batch's shapes")
+            check(bool(np.isfinite(w).all()) and w.min() >= 0 and w.max() <= 1
+                  and not w[batch["label"] == 255].any(),
+                  f"{what}: EDT weights must lie in [0, 1] and be 0 at ignore pixels")
+            db = to_device(batch, dev, class_weight)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            metrics = train_step(state, db, anchors)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            split.append((t0 - t_wait, t1 - t0, t2 - t1))
+            comps = {k: v.item() for k, v in metrics.items()}
+            check(all(map(lambda v: v == v and abs(v) < float("inf"), comps.values())),
+                  f"{what} step {i}: a loss is not finite: {comps}")
+            log(f"  epoch {epoch} step {i}: loader wait {1e3 * split[-1][0]:.1f} ms, to_device "
+                f"{1e3 * split[-1][1]:.1f} ms, train step {1e3 * split[-1][2]:.1f} ms; "
+                + ", ".join(f"{k} {v:.4f}" for k, v in comps.items()))
+            t_wait = time.perf_counter()
+        check(next(it, None) is None, "the loader must end after len(loader) batches")
+        # step 0 of an epoch also waits for the loader's pipeline to fill
+        timed = split[1:]
+        mean = [1e3 * sum(s[j] for s in timed) / len(timed) for j in range(3)]
+        total = sum(mean)
+        log(f"  {what}, epoch {epoch} ({n_workers} loader threads), steps 1-{len(split) - 1}: "
+            f"{total:.2f} ms a step = loader "
+            f"wait {mean[0]:.2f} + to_device {mean[1]:.2f} + train step {mean[2]:.2f} ms; "
+            f"{cfg.batch_size * 1e3 / total:.2f} samples/s "
+            f"({cfg.batch_size * 1e3 / (total - mean[0]):.2f} without the wait); step 0 waited "
+            f"{1e3 * split[0][0]:.1f} ms")
+    launches = {fn.__name__: fn.launches for fn in counted}
+    check(not any(launches.values()), f"{what}: no kernel may launch in host-fed steps: {launches}")
+    return model
+
+
+def host_augment_phase(torch, dev):
+    """15. The default route: the synthetic 1024×2048 dataset through the
+    host train transforms (768² crops, chamfer EDT weights, two views) into
+    the flagship step."""
+    from doubly_contrastive_semseg_tpu_torch import Config
+    from doubly_contrastive_semseg_tpu_torch.data import get_dataset
+
+    cfg = Config(dataset="synthetic", synthetic_hw=SYNTHETIC_HW, synthetic_size=HOST_SIZE,
+                 criterion=CRITERION, batch_size=TRAIN_BATCH, num_workers=4)
+    check(cfg.host_augment and cfg.crop_wh == (TRAIN_CROP, TRAIN_CROP) and cfg.use_supcon,
+          "the host-augmented phase must run the default route at the published crop")
+    log(f"== 15. host-augmented flagship train step: synthetic {SYNTHETIC_HW} frames (size "
+        f"{HOST_SIZE}), host crops {TRAIN_CROP}², batch {cfg.batch_size} x 2 views, "
+        f"{cfg.compute_dtype}, {CRITERION}; epoch 0 generates the frames with 4 loader "
+        "threads, epochs 1 and 2 find them cached, with 4 threads and with 1")
+    train_dst, _ = get_dataset(cfg, seed=cfg.random_seed)
+    host_fed_steps(torch, dev, cfg, train_dst, "host-augmented synthetic", workers=(4, 4, 1))
+
+
+def acdc_phase(torch, dev, profile_host_data, profile_stem):
+    """16. ACDC from PNG files: an ACDC tree written with ``write_png``
+    (1080×1920 frames with the five filters in turns down their rows,
+    labelIds maps, night frames, the file lists), read back exactly,
+    trained on through ``get_dataset`` (host transforms, gamma on), K2
+    held to its plain version at the val split's shapes, and the val split
+    evaluated through ``make_eval_step`` into the ``Evaluator``, K2
+    launching 3 times a batch."""
+    from doubly_contrastive_semseg_tpu_torch import Config
+    from doubly_contrastive_semseg_tpu_torch.data import DataLoader, get_dataset, to_device
+    from doubly_contrastive_semseg_tpu_torch.metrics import Evaluator
+    from doubly_contrastive_semseg_tpu_torch.ops import stem
+    from doubly_contrastive_semseg_tpu_torch.train import init_eval_accum, make_eval_step
+
+    with tempfile.TemporaryDirectory() as base:
+        t0 = time.perf_counter()
+        root, lists = profile_host_data.write_acdc_tree(base, ACDC_TRAIN, ACDC_VAL)
+        n = profile_host_data.check_acdc_tree(root, lists)
+        hw = "x".join(map(str, profile_host_data.ACDC_HW))
+        log(f"== 16. ACDC from PNG: {ACDC_TRAIN} train + {ACDC_VAL} val {hw} frames "
+            f"written (frames: the five filters in turns down the rows; labels: Pillow's "
+            f"filter choice; weathers fog, night, rain, snow) and all {n} "
+            f"read back as written, {time.perf_counter() - t0:.1f} s")
+        cfg = Config(dataset="acdc", data_root=root, filelist_root=lists, criterion=CRITERION,
+                     batch_size=TRAIN_BATCH, num_workers=4, use_gamma_correction=True)
+        check(cfg.host_augment and cfg.crop_wh == (TRAIN_CROP, TRAIN_CROP)
+              and cfg.val_wh == (VAL_WIDTH, VAL_HEIGHT), "the ACDC phase's recipe")
+        train_dst, val_dst = get_dataset(cfg, seed=cfg.random_seed)
+        check(len(train_dst) == ACDC_TRAIN and len(val_dst) == ACDC_VAL, "the ACDC lists")
+        model = host_fed_steps(torch, dev, cfg, train_dst, "ACDC from PNG", workers=(4, 1))
+
+        check(cfg.val_batch_size == 8 and ACDC_VAL == 12, "the val batches of 8 and 4")
+        log("  K2 at the shapes this val split gives it (the levels of 1920x1080 batches "
+            "of 8 and 4) vs stem_pool_reference:")
+        profile_stem.check_routes(torch.Generator().manual_seed(16), dev, log,
+                                  shapes=profile_stem.VAL_1080_SHAPES)
+        loader = DataLoader(val_dst, cfg.val_batch_size, shuffle=False,
+                            num_workers=cfg.num_workers)
+        step = make_eval_step(model, cfg)
+        accum = init_eval_accum(cfg, device=dev)
+        stem.fused_stem_pool.launches = 0
+        frames, t_start, step_s = 0, time.perf_counter(), 0.0
+        for i, batch in enumerate(loader):
+            before = stem.fused_stem_pool.launches
+            t0 = time.perf_counter()
+            preds, accum = step(to_device(batch, dev), accum)
+            torch.cuda.synchronize()
+            step_s += time.perf_counter() - t0
+            k2 = stem.fused_stem_pool.launches - before
+            b = batch["left"].shape[0]
+            frames += b
+            log(f"  val batch {i}: {b} frames {tuple(batch['left'].shape[1:3])}, weathers "
+                f"{batch['weather'].tolist()}, launches K2 {k2}")
+            check(k2 == 3, "each ACDC val batch must launch K2 3 times")
+            check(tuple(preds.shape) == (b, VAL_HEIGHT, VAL_WIDTH), "the val predictions' shape")
+        wall = time.perf_counter() - t_start
+    check(frames == ACDC_VAL, "the val loader must deliver every frame once")
+    host = {k: v.cpu() for k, v in accum.items()}
+    evaluator = Evaluator(cfg.num_classes, cfg.weather_num)
+    evaluator.merge_device_batch(host["cm"], host["cm_weather_sem"], host["cm_weather"],
+                                 weather_acc=float(host["weather_acc_sum"])
+                                 / max(float(host["n_batches"]), 1.0))
+    miou = evaluator.Mean_Intersection_over_Union()
+    check(miou == miou and 0 <= miou <= 1, f"mIoU {miou}")
+    check(float(host["cm"].sum()) > 0, "the confusion matrix counted no pixel")
+    log(f"  ACDC val: {frames} frames, {frames / wall:.2f} frames/s end to end (PNG decode "
+        f"included), {frames / step_s:.2f} in to_device and the eval steps; mIoU {miou:.5f}; "
+        f"K2 launches {stem.fused_stem_pool.launches}")
+
+
 def main() -> int:
     import torch
 
@@ -886,7 +1094,8 @@ def main() -> int:
         from doubly_contrastive_semseg_tpu_torch import Config, build_model, make_serving_fn
         from doubly_contrastive_semseg_tpu_torch.ops import _build, contrastive, seghead, stem
         from doubly_contrastive_semseg_tpu_torch.tools import (
-            profile_blend, profile_contrastive, profile_jfa, profile_seghead, profile_stem)
+            profile_blend, profile_contrastive, profile_host_data, profile_jfa, profile_seghead,
+            profile_stem)
         from doubly_contrastive_semseg_tpu_torch.train import (
             TrainState, build_optimizer, compute_loss, make_train_step)
     except ImportError as e:
@@ -1124,6 +1333,11 @@ def main() -> int:
     model, cfg, val_dst, jf_launches = loader_train_phase(torch, dev)
     loader_eval_phase(torch, dev, model, cfg, val_dst)
     del model
+
+    # 14-16. the default (host-augmented) input path
+    host_data_phase(profile_host_data)
+    host_augment_phase(torch, dev)
+    acdc_phase(torch, dev, profile_host_data, profile_stem)
     kernels.append({
         "name": "nearest_diff_label_distance", "route": "cuda",
         "source": "doubly_contrastive_semseg_tpu_torch/csrc/jfa.cu",

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass
@@ -27,8 +27,15 @@ class Config:
     random_seed: int = 1
     debug: bool = False
     use_gamma_correction: bool = False
-    # the host PIL/cv2 pipeline; False augments on the device
-    # (data/device_augment.py), the one route the port has so far
+    # the val split reads the test list (JAX config.py:133)
+    use_test_data: bool = False
+    # keep one weather of the file lists (JAX config.py:134)
+    weather_condition: Optional[str] = None
+    # where the datasets' file lists are; JAX reads ./filenames
+    filelist_root: str = "filenames"
+    # the host train transforms (crops, EDT weights, gamma, two views;
+    # data/transforms.py); False augments on the device
+    # (data/device_augment.py)
     host_augment: bool = True
     # train-loader shuffling; False pins list order
     shuffle: bool = True
@@ -69,7 +76,9 @@ class Config:
     train_seg_head: bool = False
     # SGD only: the seg head's lr × 10 group
     train_semantic: bool = False
-    # A/B parity mode: pixel-contrast anchors are the first raster indices
+    # A/B parity mode: pixel-contrast anchors are the first raster indices,
+    # and the host train transforms draw the reference's legacy np.random
+    # stream seeded with random_seed (data/transforms.py::ReferenceRng)
     reference_rng: bool = False
 
     @property
@@ -92,7 +101,7 @@ class Config:
         (reference ``dataloaders/utils.py:110-112``); for synthetic data
         (96, 96) on frames under 768 rows and the published 768² above.
         (JAX's city_lost 1024×512 crop waits for that dataset, ``ROADMAP.md``
-        §1 item 1b.)"""
+        §1 item 1c.)"""
         if self.dataset == "synthetic":
             h = int(self.synthetic_hw.split("x")[0])
             return (96, 96) if h < 768 else (768, 768)

@@ -1,54 +1,106 @@
 """Dataset and transform-pipeline factory — port of the JAX package's
 ``data/factory.py`` (reference ``dataloaders/utils.py:24-193``), for the
-routes whose transforms are ported:
+routes whose datasets are ported:
 
+- ``host_augment=True`` (the default): train is RandomSquareCropAndScale
+  (the crop) → SetTargetSize → LabelBoundaryTransform (EDT weights) →
+  [GammaCorrection] → ToArrays, in TwoCropTransform when the criterion has
+  'supcon'; val is FixedResize → [GammaCorrection] → ToArrays;
 - ``host_augment=False`` (on-device augmentation): train is ``ToArrays``
   alone, the crops, gamma and EDT weights run on the device
-  (``data/device_augment.py``); val is ``FixedResize`` → ``ToArrays``;
-- the ``synthetic`` dataset, in memory.
+  (``data/device_augment.py``); val is FixedResize → ToArrays;
+- the datasets ``acdc`` (PNG files under ``data_root``, file lists under
+  ``filelist_root``) and ``synthetic`` (in memory).
 
-The host train transforms (``RandomSquareCropAndScale``,
-``LabelBoundaryTransform``, ``GammaCorrection``, ``TwoCropTransform``) and
-the file-backed datasets are ``ROADMAP.md`` §1 item 1b: asking for them
-raises ``NotImplementedError`` rather than taking another route.
+``acdc_city``, ``cityscapes``, ``kitti_2015``, ``kitti_mix``,
+``sceneflow`` and ``city_lost`` are ``ROADMAP.md`` §1 item 1c: asking for
+them raises ``NotImplementedError`` rather than taking another route.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
+
+from .acdc import ACDC
 from .synthetic import SyntheticDataset
-from .transforms import Compose, FixedResize, ToArrays
+from .transforms import (
+    Compose,
+    FixedResize,
+    GammaCorrection,
+    LabelBoundaryTransform,
+    RandomSquareCropAndScale,
+    ReferenceRng,
+    SetTargetSize,
+    ThreadSafeRng,
+    ToArrays,
+    TwoCropTransform,
+)
 
-_FILE_DATASETS = ("acdc", "acdc_city", "cityscapes", "kitti_2015", "kitti_mix",
-                  "sceneflow", "city_lost")
+# dataset-mean fill of the crop padding (reference dataloaders/utils.py:28-30)
+MEAN_RGB = tuple(np.uint8([73.15, 82.90, 72.3]))
+
+_NOT_PORTED = ("acdc_city", "cityscapes", "kitti_2015", "kitti_mix", "sceneflow", "city_lost")
 
 
-def _host_augment_not_ported(cfg) -> NotImplementedError:
-    return NotImplementedError(
-        f"dataset {cfg.dataset!r} with host_augment=True: the host train transforms "
-        "(RandomSquareCropAndScale, LabelBoundaryTransform, TwoCropTransform) are not "
-        "ported yet (ROADMAP.md §1 item 1b); set host_augment=False to augment on the "
-        "device")
+def _train_rng(cfg, seed: int):
+    """The augmentation draws: a lock-guarded Generator the loader's threads
+    share, or under ``reference_rng`` the reference program's legacy
+    ``np.random`` stream (single-worker, unshuffled runs only)."""
+    if cfg.reference_rng:
+        return ReferenceRng(cfg.random_seed)
+    return ThreadSafeRng(np.random.default_rng(seed))
+
+
+def _host_train(cfg, crop_wh: Tuple[int, int], rng, gamma: bool):
+    """JAX's host train pipeline (``factory.py:64-71``, ``:134-143``)."""
+    tech = [
+        RandomSquareCropAndScale(crop_wh, mean=MEAN_RGB, ignore_id=255, rng=rng),
+        SetTargetSize(target_size=crop_wh,
+                      target_size_feats=(crop_wh[0] // 4, crop_wh[1] // 4)),
+        LabelBoundaryTransform(num_classes=cfg.num_classes, reduce=True),
+    ]
+    if gamma:
+        tech.append(GammaCorrection())
+    tech.append(ToArrays())
+    transform = Compose(tech)
+    return TwoCropTransform(transform) if cfg.use_supcon else transform
 
 
 def build_transforms(cfg, crop_wh: Tuple[int, int], seed: int = 0):
-    """(train, val) transforms of a file-backed dataset: with
-    ``host_augment=False`` the host only converts (JAX ``factory.py:
-    57-62``)."""
-    if cfg.host_augment:
-        raise _host_augment_not_ported(cfg)
-    return Compose([ToArrays()]), Compose(
-        [FixedResize((cfg.val_img_width, cfg.val_img_height)), ToArrays()])
+    """(train, val) transforms of a file-backed dataset (JAX ``factory.py:
+    48-71``)."""
+    if not cfg.host_augment:
+        # the host only converts; the crops, EDT weights, gamma and two
+        # views run on the device (data/device_augment.py)
+        return Compose([ToArrays()]), Compose(
+            [FixedResize((cfg.val_img_width, cfg.val_img_height)), ToArrays()])
+    gamma = cfg.use_gamma_correction
+    val_tech = [FixedResize((cfg.val_img_width, cfg.val_img_height))]
+    if gamma:
+        val_tech.append(GammaCorrection())
+    val_tech.append(ToArrays())
+    return _host_train(cfg, crop_wh, _train_rng(cfg, seed), gamma), Compose(val_tech)
 
 
 def get_dataset(cfg, seed: int = 0):
     """Returns (train_dst, val_dst)."""
+    if cfg.dataset == "acdc":
+        train_t, val_t = build_transforms(cfg, cfg.crop_wh, seed)
+        train_dst = ACDC(root=cfg.data_root, mode="train", transform=train_t, opts=cfg,
+                         filelist_root=cfg.filelist_root)
+        val_mode = "test" if cfg.use_test_data else "val"
+        val_dst = ACDC(root=cfg.data_root, mode=val_mode, transform=val_t, opts=cfg,
+                       filelist_root=cfg.filelist_root)
+        return train_dst, val_dst
     if cfg.dataset == "synthetic":
-        if cfg.host_augment:
-            raise _host_augment_not_ported(cfg)
         hw = tuple(int(v) for v in cfg.synthetic_hw.split("x"))  # (h, w)
-        train_t = Compose([ToArrays()])
+        if cfg.host_augment:
+            # no gamma on the synthetic route, as in JAX (factory.py:134-143)
+            train_t = _host_train(cfg, cfg.crop_wh, _train_rng(cfg, seed), gamma=False)
+        else:
+            train_t = Compose([ToArrays()])
         val_t = Compose([FixedResize((hw[1], hw[0])), ToArrays()])
         size = 8 if cfg.debug else cfg.synthetic_size
         train_dst = SyntheticDataset(size=size, image_hw=hw,
@@ -60,8 +112,8 @@ def get_dataset(cfg, seed: int = 0):
                                    weather_num=cfg.weather_num,
                                    transform=val_t, seed=seed + 1, mode="val")
         return train_dst, val_dst
-    if cfg.dataset in _FILE_DATASETS:
+    if cfg.dataset in _NOT_PORTED:
         raise NotImplementedError(
-            f"dataset {cfg.dataset!r}: the file-backed datasets are not ported yet "
-            "(ROADMAP.md §1 item 1b)")
+            f"dataset {cfg.dataset!r} is not ported yet (ROADMAP.md §1 item 1c); the port "
+            "reads 'acdc' and 'synthetic'")
     raise ValueError(f"unknown dataset {cfg.dataset}")

@@ -13,7 +13,8 @@ route; and the CUDA-core kernel on the same bf16 inputs (the previous
 design) at 2e-2. Then times, at the three pyramid levels of a 2048×1024
 batch of 8 in bf16, the tensor-core kernel, the CUDA-core kernel and the
 plain version, with TFLOP/s and the ratio to the bound. ``chip_smoke.py``
-phases 2 and 5 call ``check_routes`` and ``time_levels``.
+phases 2 and 5 call ``check_routes`` and ``time_levels``; phase 16 calls
+``check_routes`` at ``VAL_1080_SHAPES``, the shapes its eval pass gives K2.
 """
 
 from __future__ import annotations
@@ -36,6 +37,10 @@ CHECK_SHAPES = [(BATCH, HEIGHT, WIDTH), (BATCH, HEIGHT // 2, WIDTH // 2),
                 (BATCH, HEIGHT // 4, WIDTH // 4),
                 (BATCH, 270, 480),    # level 2 of 1920×1080: 135 conv rows → 68
                 (2, 37, 53)]          # small, odd
+# the three levels of a 1920×1080 eval batch of 8 and of 4 (the last batch
+# of an ACDC val split of 12): 540 conv rows → 270, 270 → 135 (odd), 135 → 68
+VAL_1080_SHAPES = [(BATCH, 1080, 1920), (BATCH, 540, 960), (BATCH, 270, 480),
+                   (4, 1080, 1920), (4, 540, 960), (4, 270, 480)]
 HEADLINE = 3                          # the first 3 shapes are the pyramid's levels
 
 
@@ -127,14 +132,15 @@ def _err(got, ref, rel_tol):
     return err, rel_tol * ref.float().abs().max().item()
 
 
-def check_routes(gen, dev, log=print) -> float:
-    """Each route against ``stem_pool_reference`` at ``CHECK_SHAPES``; raises
+def check_routes(gen, dev, log=print, shapes=CHECK_SHAPES) -> float:
+    """Each route against ``stem_pool_reference`` at ``shapes``; raises
     on a disagreement or a call that took the wrong route. Returns the
-    tensor-core route's max abs error over the headline levels."""
+    tensor-core route's max abs error over the first three shapes (a
+    pyramid's levels)."""
     weight, scale, shift = stem_params(gen, dev)
     fn = stem.fused_stem_pool
     headline_err = 0.0
-    for i, (b, h, w) in enumerate(CHECK_SHAPES):
+    for i, (b, h, w) in enumerate(shapes):
         x32 = torch.randn(b, h, w, 3, generator=gen).to(dev)
         cases = (("f32 CUDA cores", x32, 1e-4, fn, "cc_launches"),
                  ("bf16 tensor cores", x32.to(torch.bfloat16), 2e-2, fn, "tc_launches"),

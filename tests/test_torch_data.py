@@ -261,11 +261,13 @@ def test_get_dataset_synthetic_matches_jax():
 
 
 def test_get_dataset_raises_for_routes_not_ported():
-    with pytest.raises(NotImplementedError, match="1b"):
-        get_dataset(Config(dataset="synthetic", synthetic_hw="64x80"))   # host_augment=True
-    for name in ("acdc", "cityscapes", "city_lost"):
-        with pytest.raises(NotImplementedError, match="1b"):
-            get_dataset(Config(dataset=name, host_augment=False))
+    """The datasets not ported raise, naming ROADMAP item 1c, with either
+    augmentation route; ``acdc`` and ``synthetic`` are ported with both
+    (``tests/test_torch_acdc.py``, ``tests/test_torch_transforms.py``)."""
+    for name in ("acdc_city", "cityscapes", "kitti_2015", "kitti_mix", "sceneflow", "city_lost"):
+        for host_augment in (True, False):
+            with pytest.raises(NotImplementedError, match="1c"):
+                get_dataset(Config(dataset=name, host_augment=host_augment))
     with pytest.raises(ValueError, match="unknown dataset"):
         get_dataset(Config(dataset="nowhere", host_augment=False))
 
@@ -283,8 +285,11 @@ def test_to_device_on_the_cpu():
 
 def test_build_transforms_matches_jax(rng):
     """With ``host_augment=False`` the train transform only converts and
-    the val transform resizes to the val size, as JAX's; the host
-    augmentation route raises."""
+    the val transform resizes to the val size, as JAX's; with
+    ``host_augment=True`` (and gamma) both are JAX's host pipelines: the
+    two views of the same seed and the val sample of a night frame."""
+    from test_torch_transforms import FixedPointCv2
+
     img = rng.integers(0, 256, (54, 96, 3)).astype(np.uint8)
     lbl = rng.integers(0, 19, (54, 96)).astype(np.uint8)
     cfg = Config(dataset="acdc", host_augment=False, val_img_width=64, val_img_height=36)
@@ -296,8 +301,17 @@ def test_build_transforms_matches_jax(rng):
         want = want_t({"left": Image.fromarray(img), "label": Image.fromarray(lbl),
                        "weather": np.array([1])})
         assert_same_sample(got, want)
-    with pytest.raises(NotImplementedError, match="1b"):
-        build_transforms(Config(dataset="acdc"), (768, 768))
+    cfg = Config(dataset="acdc", criterion="supcon_pixelcontrast_focal", use_gamma_correction=True,
+                 val_img_width=64, val_img_height=36)
+    jcfg = parse_args(["--dataset", "acdc", "--criterion", "supcon_pixelcontrast_focal",
+                       "--use_gamma_correction", "--val_img_width", "64", "--val_img_height", "36"])
+    for got_t, want_t in zip(build_transforms(cfg, (48, 48), seed=5),
+                             jax_build_transforms(jcfg, (48, 48), seed=5)):
+        got = got_t({"left": img, "label": lbl, "weather": np.array([1])})
+        want = FixedPointCv2(want_t)({"left": Image.fromarray(img), "label": Image.fromarray(lbl),
+                                      "weather": np.array([1])})
+        for g, w in (zip(got, want) if isinstance(want, list) else [(got, want)]):
+            assert_same_sample(g, w)
 
 
 def test_set_target_size_matches_jax():
