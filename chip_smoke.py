@@ -78,6 +78,28 @@ held to its plain version at the levels of 1920×1080 batches of 8 and 4,
 and the val split through ``make_eval_step`` into the ``Evaluator``, K2
 launching 3 times a batch (phase 16).
 
+Then the runtime through the port's CLIs, with a generator of its own
+(phase 17): ``main(argv)`` in process on the default host-augmented route
+at the published recipe (synthetic 1024×2048 frames, 768² crops, batch 8 ×
+2 views, bf16, ``supcon_pixelcontrast_focal``, ADAM, one loader thread, 2
+epochs of 2 steps, validating each), its run directory, finite losses in
+``metrics.jsonl``, K2 3 times a val batch and held to its plain version at
+the val split's levels, and checkpoint save and restore times (a); a
+``--resume latest_checkpoint --continue_training`` third epoch, the
+restored optimizer state equal to the saved one and every group's lr the
+schedule's (b); ``--test_only --resume score_best_checkpoint``, the
+restored weights bit for bit the saved ones, K2 at the batch-1 levels (c);
+``--no_host_augment``, JF 88 times a step, then the CLI as a subprocess
+SIGTERM'd after its second step, which must exit with 143 within 60 s
+leaving a ``rescue_checkpoint`` that resumes at the next epoch (d); the SGD
+recipe for one epoch, every trained group moved and no frozen parameter
+(e); and the inference CLI on 4 PNG frames of 1080×1920 from the best
+checkpoint at bf16 and f32, K2 3 times an image and held at those levels,
+its labels against the same checkpoint with the plain stem in process:
+f32 on 0.999 of pixels, bf16 on 0.99 of those whose f32 top-two logit gap
+exceeds twice the plain stem's bf16 logit error, in each frame and in its
+last 16 rows (f).
+
 Any failure raises and exits non-zero; so does a machine without CUDA or a
 directory without the package. The last line is ``{"ok": true, "device":
 {...}}``; the line before it lists each kernel's launches, error and times.
@@ -86,6 +108,7 @@ directory without the package. The last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -102,6 +125,7 @@ VAL_HEIGHT, VAL_WIDTH = 1080, 1920      # the JAX default val shape (config.py:1
 SYNTHETIC_HW, SYNTHETIC_SIZE = "1024x2048", 48   # crop_wh: the published 768²
 HOST_SIZE = 24                          # host-augmented synthetic: 3 steps an epoch
 ACDC_TRAIN, ACDC_VAL = 24, 12           # ACDC from PNG: 3 steps an epoch, val batches 8 + 4
+RUNTIME_SIZE, INFER_FRAMES = 16, 4      # phase 17: 2 steps an epoch, a val split of 4 frames
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1083,6 +1107,435 @@ def acdc_phase(torch, dev, profile_host_data, profile_stem):
         f"K2 launches {stem.fused_stem_pool.launches}")
 
 
+def count_launches(stem, edt, contrastive, seghead, blend):
+    """(reset, read) of every kernel wrapper's launch count."""
+    fns = (stem.fused_stem_pool, edt.nearest_diff_label_distance,
+           contrastive.contrastive_row_stats, contrastive.pos_sweep_layout,
+           contrastive.pixel_contrast_pos_sweep, seghead.fused_seghead_upsample_argmax,
+           blend.fused_upsample_blend)
+
+    def reset():
+        for fn in fns:
+            fn.launches = 0
+        stem.fused_stem_pool.tc_launches = stem.fused_stem_pool.cc_launches = 0
+
+    def read():
+        out = {fn.__name__: fn.launches for fn in fns}
+        out["fused_stem_pool_tc"] = stem.fused_stem_pool.tc_launches
+        return out
+
+    return reset, read
+
+
+def expect_launches(got, what, k2=0, jf=0, tc=None):
+    """Only K2 (``tc`` of them on tensor cores: all unless given) and JF may
+    launch, as many times as given."""
+    want = {name: 0 for name in got}
+    want.update(fused_stem_pool=k2, fused_stem_pool_tc=k2 if tc is None else tc,
+                nearest_diff_label_distance=jf)
+    log(f"  {what}: launches {got}")
+    check(got == want, f"{what}: launches {got}, expected {want}")
+
+
+def run_files(path):
+    return sorted(os.path.relpath(os.path.join(dp, f), path)
+                  for dp, _, fn in os.walk(path) for f in fn)
+
+
+def scalars(path, tag):
+    with open(os.path.join(path, "metrics.jsonl")) as f:
+        rows = [json.loads(ln) for ln in f]
+    return [(r["step"], r["value"]) for r in rows if r["tag"] == tag]
+
+
+def runtime_phase(torch, dev, card, profile_stem):
+    """17. The runtime through the port's CLIs (``main``, ``inference``),
+    in process and as a subprocess; its own generator. Returns K2's and
+    JF's launches on these paths."""
+    import logging
+    import os
+    import signal
+
+    from doubly_contrastive_semseg_tpu_torch import inference as port_inference
+    from doubly_contrastive_semseg_tpu_torch import Config, build_model
+    from doubly_contrastive_semseg_tpu_torch.config import parse_args
+    from doubly_contrastive_semseg_tpu_torch.data import SyntheticDataset, read_png, write_png
+    from doubly_contrastive_semseg_tpu_torch.data.labels import TRAIN_ID_TO_COLOR
+    from doubly_contrastive_semseg_tpu_torch.main import main as port_main
+    from doubly_contrastive_semseg_tpu_torch.ops import blend, contrastive, edt, seghead, stem
+    from doubly_contrastive_semseg_tpu_torch.ops.input_pipeline import pyramid_hw
+    from doubly_contrastive_semseg_tpu_torch.train import CheckpointManager, Trainer
+    from doubly_contrastive_semseg_tpu_torch.train.optimizer import build_lr_schedule
+    from doubly_contrastive_semseg_tpu_torch.utils.params import label_params_for_optimizer
+    from doubly_contrastive_semseg_tpu_torch.utils.pretrained import merge_state_dict
+
+    gen = torch.Generator().manual_seed(17)   # phase 7 needs the shared draw order kept
+    reset, read = count_launches(stem, edt, contrastive, seghead, blend)
+    out = {}
+
+    def levels(b, h, w):
+        return [(b,) + pyramid_hw(h, w, lv) for lv in range(3)]
+
+    def timed(what, cap_s, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        dt = time.perf_counter() - t0
+        check(dt < cap_s, f"{what} took {dt:.1f} s, over its {cap_s} s limit")
+        return res, dt
+
+    def finite_losses(path, n):
+        losses = scalars(path, "train/total_loss_print_freq")
+        check(len(losses) == n and all(np.isfinite(v) for _, v in losses),
+              f"{n} finite total_loss values in {path}/metrics.jsonl: {losses}")
+        return [v for _, v in losses]
+
+    h, w = (int(v) for v in SYNTHETIC_HW.split("x"))
+    with tempfile.TemporaryDirectory() as base:
+        common = ["--dataset", "synthetic", "--synthetic_hw", SYNTHETIC_HW,
+                  "--synthetic_size", str(RUNTIME_SIZE), "--train_semantic",
+                  "--criterion", CRITERION, "--batch_size", str(TRAIN_BATCH),
+                  "--print_freq", "1", "--summary_freq", "1", "--run_root", base,
+                  "--device", dev.type]
+
+        # a. main(argv) on the default host-augmented route, the published recipe
+        argv_a = common + ["--optimizer_policy", "ADAM", "--num_workers", "1", "--epochs", "2",
+                           "--checkname", "a"]
+        cfg = parse_args(argv_a)
+        check(cfg.host_augment and cfg.crop_wh == (TRAIN_CROP, TRAIN_CROP) and cfg.efficient
+              and cfg.compute_dtype == "bfloat16" and cfg.use_supcon,
+              "phase 17a must run the published recipe on the card")
+        log(f"== 17. the runtime through the port's CLIs. a. main: synthetic {SYNTHETIC_HW} "
+            f"({RUNTIME_SIZE} train frames, 2 steps an epoch), host crops {TRAIN_CROP}², batch "
+            f"{TRAIN_BATCH} x 2 views, bf16, {CRITERION}, ADAM, 1 loader thread, 2 epochs, "
+            "validate each")
+        reset()
+        tr, dt = timed("17a", 300, lambda: port_main(argv_a))
+        launches = read()
+        n_val = len(tr.val_loader)
+        expect_launches(launches, "17a main, 2 epochs", k2=3 * n_val * 2)
+        out["k2_validate"] = launches["fused_stem_pool"]
+        run = tr.saver.experiment_dir
+        files = run_files(run)
+        for f in ("args.json", "command.txt", "parameters.txt", "val_results.txt",
+                  "metrics.jsonl", "checkpoints/latest_checkpoint",
+                  "checkpoints/latest_checkpoint.meta.json", "checkpoints/score_best_checkpoint",
+                  "checkpoints/score_best_checkpoint.meta.json"):
+            check(f in files, f"17a: {f} missing from the run directory: {files}")
+        with open(os.path.join(run, "val_results.txt")) as f:
+            epochs = [ln for ln in f if ln.startswith("epoch ")]
+        check(len(epochs) == 2, f"17a: 2 epoch lines in val_results.txt: {epochs}")
+        finite_losses(run, 4)
+        for epoch in range(2):
+            steps = [s for s in tr.step_times if s[0] == epoch]
+            log(f"  {card}: 17a epoch {epoch}: {tr.epoch_seconds[epoch]:.2f} s (train + "
+                f"validate); ms a step (loader wait, step): "
+                + ", ".join(f"({1e3 * s[1]:.1f}, {1e3 * s[2]:.1f})" for s in steps))
+        for epoch, frames, wall in tr.val_times:
+            log(f"  {card}: 17a val epoch {epoch}: {frames} frames {SYNTHETIC_HW}, "
+                f"{frames / wall:.2f} frames/s end to end (loader included)")
+        log("  K2 at the val split's levels (a batch of "
+            f"{len(tr.val_dst)} at {SYNTHETIC_HW}) vs stem_pool_reference:")
+        profile_stem.check_routes(gen, dev, log, shapes=levels(len(tr.val_dst), h, w))
+        mgr = CheckpointManager(os.path.join(base, "timing"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = mgr.save("latest_checkpoint", tr.state, tr.cur_epochs)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        mgr.restore(path, tr.state, continue_training=True)
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        log(f"  {card}: checkpoint save {save_ms:.1f} ms, restore (continue_training) "
+            f"{restore_ms:.1f} ms, file {os.path.getsize(path) / 1e6:.2f} MB")
+        latest = os.path.join(tr.saver.checkpoint_dir, "latest_checkpoint")
+        best = os.path.join(tr.saver.checkpoint_dir, "score_best_checkpoint")
+        del tr, mgr
+
+        # b. --resume <latest> --continue_training for a third epoch
+        saved = torch.load(latest, map_location="cpu", weights_only=True)
+        with open(latest + ".meta.json") as f:
+            meta = json.load(f)
+        argv_b = common + ["--optimizer_policy", "ADAM", "--num_workers", "1", "--epochs", "3",
+                           "--checkname", "b", "--resume", latest, "--continue_training"]
+        cfg_b = parse_args(argv_b)
+        reset()
+
+        def resume_b():
+            trb = Trainer(cfg_b, device=cfg_b.device)
+            check((trb.cur_epochs, trb.num_iter, trb.state.step)
+                  == (meta["epoch"] + 1, meta["num_iter"] + 1, meta["num_iter"]),
+                  f"17b: JAX's resume rule: epoch {trb.cur_epochs}, num_iter {trb.num_iter}, "
+                  f"step {trb.state.step} from {meta}")
+            osd = trb.optimizer.state_dict()
+            for i, st in saved["optimizer"]["state"].items():
+                for name, v in st.items():
+                    check(torch.equal(v.cpu(), osd["state"][i][name].cpu()),
+                          f"17b: optimizer state {i}.{name} differs after the restore")
+            check([{k: g[k] for k in ("label", "base_lr", "steps_per_epoch")}
+                   for g in osd["param_groups"]]
+                  == [{k: g[k] for k in ("label", "base_lr", "steps_per_epoch")}
+                      for g in saved["optimizer"]["param_groups"]], "17b: the optimizer's groups")
+            sd = trb.model.state_dict()
+            check(all(torch.equal(sd[k].cpu(), v) for k, v in saved["model"].items()),
+                  "17b: the restored weights differ from the saved ones")
+            log(f"  17b restored: epoch {trb.cur_epochs}, num_iter {trb.num_iter}, step "
+                f"{trb.state.step} (meta {meta['epoch']}, {meta['num_iter']}); "
+                f"{len(saved['optimizer']['state'])} optimizer states equal the saved ones")
+            for epoch in range(trb.cur_epochs, cfg_b.epochs):     # main's loop
+                trb.cur_epochs = epoch
+                trb.train()
+                trb.validate()
+            return trb
+
+        log("== 17b. --resume latest_checkpoint --continue_training, a third epoch")
+        trb, dt = timed("17b", 200, resume_b)
+        expect_launches(read(), "17b resumed epoch", k2=3 * len(trb.val_loader))
+        finite_losses(trb.saver.experiment_dir, 2)
+        for g in trb.optimizer.param_groups:
+            want = build_lr_schedule(cfg_b, g["steps_per_epoch"], g["base_lr"])(trb.state.step - 1)
+            check(g["lr"] == want, f"17b: group {g['label']} lr {g['lr']} vs schedule {want}")
+        log(f"  {card}: 17b resumed epoch: {dt:.2f} s with the restore; lr "
+            + ", ".join(f"{g['label']} {g['lr']:.6e}" for g in trb.optimizer.param_groups)
+            + f" = the schedule at step {trb.state.step - 1}")
+        del trb, saved
+
+        # c. --test_only --resume <best>: batch-1 val shapes
+        argv_c = common + ["--test_only", "--resume", best, "--checkname", "c"]
+        log("== 17c. --test_only --resume score_best_checkpoint")
+        reset()
+        trc, dt = timed("17c", 120, lambda: port_main(argv_c))
+        check(trc.cfg.val_batch_size == 1, "17c: --test_only validates in batches of 1")
+        launches = read()
+        expect_launches(launches, "17c test_only", k2=3 * len(trc.val_dst))
+        out["k2_test_only"] = launches["fused_stem_pool"]
+        best_sd = torch.load(best, map_location="cpu", weights_only=True)["model"]
+        sd = trc.model.state_dict()
+        check(sd.keys() == best_sd.keys() and all(torch.equal(sd[k].cpu(), v)
+                                                   for k, v in best_sd.items()),
+              "17c: the restored state_dict differs from the saved one")
+        check(not os.path.exists(os.path.join(trc.saver.checkpoint_dir, "latest_checkpoint")),
+              "17c: --test_only must not save a checkpoint")
+        ((_, frames, wall),) = trc.val_times
+        log(f"  {card}: 17c test_only: {frames} frames, {frames / wall:.2f} frames/s end to "
+            f"end, {1.0 / (sum(trc.time_val) / len(trc.time_val)):.2f} frames/s in the eval "
+            f"steps (first skipped); state_dict bit for bit the saved one")
+        log("  K2 at the --test_only batch-1 levels vs stem_pool_reference:")
+        profile_stem.check_routes(gen, dev, log, shapes=levels(1, h, w))
+        del trc, sd, best_sd
+
+        # d. --no_host_augment: JF counted in process, then SIGTERM'd in a subprocess
+        argv_d = common + ["--no_host_augment", "--epochs", "1", "--checkname", "d"]
+        log("== 17d. --no_host_augment: 1 epoch in process (JF counted), then a subprocess "
+            "SIGTERM'd after its second step")
+        reset()
+        trd, dt = timed("17d", 120, lambda: port_main(argv_d))
+        n_steps = len(trd.step_times)
+        per_step = len(edt.jfa_launches(TRAIN_CROP, TRAIN_CROP))
+        launches = read()
+        expect_launches(launches, f"17d in process, {n_steps} steps",
+                        k2=3 * len(trd.val_loader), jf=per_step * n_steps)
+        out["jf_trainer"] = launches["nearest_diff_label_distance"]
+        finite_losses(trd.saver.experiment_dir, n_steps)
+        log(f"  {card}: 17d epoch {trd.epoch_seconds[0]:.2f} s; ms a step (loader wait, "
+            "step): " + ", ".join(f"({1e3 * s[1]:.1f}, {1e3 * s[2]:.1f})"
+                                  for s in trd.step_times))
+        del trd
+        argv_sig = common + ["--no_host_augment", "--epochs", "3", "--rescue_interval", "1",
+                             "--checkname", "sigterm"]
+        repo = os.path.dirname(os.path.abspath(__file__))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "doubly_contrastive_semseg_tpu_torch.main", *argv_sig],
+            cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")})
+        lines, t_start, t_kill = [], time.perf_counter(), None
+        try:
+            for line in proc.stdout:
+                lines.append(line)
+                if "][  2/  2]" in line:          # the second step's log line
+                    t_kill = time.perf_counter()
+                    proc.send_signal(signal.SIGTERM)
+                    break
+                check(time.perf_counter() - t_start < 240, "17d: the subprocess's second "
+                      "step did not come within 240 s: " + "".join(lines[-10:]))
+            rest, _ = proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        check(t_kill is not None, "17d: the subprocess ended before its second step: "
+              + "".join(lines[-20:]))
+        exit_s = time.perf_counter() - t_kill
+        lines += rest.splitlines(keepends=True)
+        logged = sum("Epoch: [" in ln for ln in lines)
+        log(f"  17d subprocess: SIGTERM {t_kill - t_start:.1f} s after its start, exit code "
+            f"{proc.returncode} {exit_s:.2f} s later (limit 60 s); {logged} steps logged")
+        check(proc.returncode == 143 and exit_s < 60,
+              "17d: SIGTERM must exit with 143 within 60 s: " + "".join(lines[-20:]))
+        (sig_run,) = [dp for dp, _, fn in os.walk(os.path.join(base, "synthetic", "sigterm"))
+                      if "args.json" in fn]
+        rescue = os.path.join(sig_run, "checkpoints", "rescue_checkpoint")
+        with open(rescue + ".meta.json") as f:
+            rmeta = json.load(f)
+        check(torch.load(rescue, map_location="cpu", weights_only=True)["step"]
+              == rmeta["num_iter"] and logged <= rmeta["num_iter"] <= logged + 1
+              and not rmeta["mid_epoch"], f"17d: rescue meta {rmeta}, {logged} steps logged")
+        trr = Trainer(parse_args(argv_sig + ["--checkname", "rescued", "--resume", rescue,
+                                             "--continue_training"]), device=dev.type)
+        check((trr.cur_epochs, trr.num_iter) == (rmeta["epoch"] + 1, rmeta["num_iter"] + 1),
+              f"17d: the rescue resumes at the next epoch: {trr.cur_epochs}, {trr.num_iter} "
+              f"from {rmeta}")
+        log(f"  17d rescue_checkpoint: meta {rmeta}; the resume starts epoch {trr.cur_epochs} "
+            f"at num_iter {trr.num_iter}")
+        del trr
+
+        # e. the SGD recipe, one epoch
+        argv_e = common + ["--optimizer_policy", "SGD", "--no_host_augment", "--epochs", "1",
+                           "--checkname", "e"]
+        cfg_e = parse_args(argv_e)
+        log("== 17e. the SGD recipe (lr x 0.1 / x 1 / x 10 groups, momentum 0.9), 1 epoch")
+        init = {k: v.detach().clone() for k, v in
+                build_model(cfg_e, device=dev, seed=cfg_e.random_seed).named_parameters()}
+        reset()
+        tre, dt = timed("17e", 120, lambda: port_main(argv_e))
+        expect_launches(read(), "17e SGD", k2=3 * len(tre.val_loader),
+                        jf=per_step * len(tre.step_times))
+        finite_losses(tre.saver.experiment_dir, len(tre.step_times))
+        labels = label_params_for_optimizer(tre.model, cfg_e)
+        moved = {}
+        for name, p in tre.model.named_parameters():
+            moved.setdefault(labels[name], []).append(not torch.equal(p, init[name]))
+        groups = [g["label"] for g in tre.optimizer.param_groups]
+        log(f"  17e groups {groups} (sgd_specific holds the deform-conv offsets, which "
+            "DCSSModel has none of); parameters moved by group: "
+            + ", ".join(f"{k} {sum(v)}/{len(v)}" for k, v in moved.items()))
+        check(groups == ["sgd_base", "sgd_semantic"] and all(any(moved[g]) for g in groups)
+              and not any(moved["frozen"]), "17e: every trained group moves, no frozen one")
+        del tre, init
+
+        # f. inference on 4 frames of 1080x1920 from the best checkpoint
+        frames_dir, outs = os.path.join(base, "frames"), {}
+        os.makedirs(frames_dir)
+        src = SyntheticDataset(size=INFER_FRAMES, image_hw=(VAL_HEIGHT, VAL_WIDTH), seed=17)
+        for i in range(INFER_FRAMES):
+            write_png(os.path.join(frames_dir, f"frame{i}.png"), src[i]["left"], "adaptive")
+        log(f"== 17f. inference: {INFER_FRAMES} frames {VAL_WIDTH}x{VAL_HEIGHT} (write_png) "
+            "from score_best_checkpoint through the CLI at bf16 and f32 (fused stem, K2), "
+            "held against the plain stem's model in process")
+        names = [f"frame{i}" for i in range(INFER_FRAMES)]
+        for dtype in ("bfloat16", "float32"):
+            reset()
+            d = os.path.join(base, f"out_{dtype}")
+            argv_f = ["--input", frames_dir, "--resume", best, "--device", dev.type,
+                      "--compute_dtype", dtype, "--output_dir", d]
+            res, _ = timed("17f", 120, lambda: port_inference.main(argv_f))
+            launches = read()
+            expect_launches(launches, f"17f inference, {dtype}", k2=3 * INFER_FRAMES,
+                            tc=3 * INFER_FRAMES if dtype == "bfloat16" else 0)
+            if dtype == "bfloat16":
+                out["k2_inference"] = launches["fused_stem_pool"]
+            preds = []
+            for n in names:
+                pred = read_png(os.path.join(d, f"{n}_pred.png"))
+                color = read_png(os.path.join(d, f"{n}_color.png"))
+                check(pred.shape == (VAL_HEIGHT, VAL_WIDTH) and color.shape
+                      == (VAL_HEIGHT, VAL_WIDTH, 3) and int(pred.max()) < 19
+                      and np.array_equal(color, TRAIN_ID_TO_COLOR[pred]),
+                      f"17f: {n}'s _pred.png / _color.png")
+                preds.append(pred)
+            outs[dtype, True] = (np.stack(preds), res["forward_s"][1:])
+
+        # the same checkpoint with the plain stem, in process, on the same frames
+        state = torch.load(best, map_location=dev, weights_only=True)["model"]
+        plain = {}
+        for dtype in ("bfloat16", "float32"):
+            plain[dtype] = build_model(Config(num_classes=19, compute_dtype=dtype,
+                                              dataset="acdc", fuse_stem=False).finalize(),
+                                       device=dev)
+            merge_state_dict(plain[dtype], state, best)
+            plain[dtype].eval()
+        preds = {dtype: [] for dtype in plain}
+        fwd = {dtype: [] for dtype in plain}
+        gap, err = [], []
+        reset()
+        for n in names:
+            x = torch.from_numpy(port_inference.load_image(
+                os.path.join(frames_dir, f"{n}.png"), None, None)).to(dev, torch.float32)
+            seg = {}
+            for dtype, model in plain.items():
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    seg[dtype] = model(x[None])["seg"][0].float()
+                    preds[dtype].append(seg[dtype].argmax(-1).to(torch.uint8).cpu().numpy())
+                fwd[dtype].append(time.perf_counter() - t0)
+            top2 = seg["float32"].topk(2, dim=-1).values
+            gap.append((top2[..., 0] - top2[..., 1]).cpu().numpy())
+            err.append((seg["bfloat16"] - seg["float32"]).abs().amax(-1).cpu().numpy())
+        expect_launches(read(), "17f plain stem in process, bf16 and f32")
+        for dtype in plain:
+            outs[dtype, False] = (np.stack(preds[dtype]), fwd[dtype][1:])
+        gap, err = np.stack(gap), np.stack(err)
+        del plain, state, seg
+
+        def agree(a, b, mask=None):
+            eq = outs[a][0] == outs[b][0]
+            return float(eq.mean() if mask is None else eq[mask].mean())
+
+        bf_fused, bf_plain = ("bfloat16", True), ("bfloat16", False)
+        f32_fused, f32_plain = ("float32", True), ("float32", False)
+        a = {"bf16 fused vs bf16 plain": agree(bf_fused, bf_plain),
+             "f32 fused vs f32 plain": agree(f32_fused, f32_plain),
+             "bf16 fused vs f32 plain": agree(bf_fused, f32_plain),
+             "bf16 plain vs f32 plain": agree(bf_plain, f32_plain)}
+        log(f"  17f label agreement over the {INFER_FRAMES} frames, all pixels: "
+            + ", ".join(f"{k} {v:.6f}" for k, v in a.items()))
+        log("  17f quantiles 0.5/0.99/0.999 of the f32 plain top-two logit gap: "
+            + ", ".join(f"{q:.4f}" for q in np.quantile(gap, [0.5, 0.99, 0.999]))
+            + "; of the bf16 plain logits' max abs error against f32: "
+            + ", ".join(f"{q:.4f}" for q in np.quantile(err, [0.5, 0.99, 0.999])))
+        for m in (0.1, 0.25):
+            log(f"  17f pixels with the f32 gap >= {m}: share {float((gap >= m).mean()):.6f}, "
+                f"bf16 fused vs bf16 plain {agree(bf_fused, bf_plain, gap >= m):.6f}, "
+                f"bf16 plain vs f32 plain {agree(bf_plain, f32_plain, gap >= m):.6f}")
+        check(a["f32 fused vs f32 plain"] >= 0.999,
+              "17f: the fused stem's f32 labels disagree with the plain stem's")
+        # two bf16 routes round differently, so a pixel whose top two f32
+        # logits lie within bf16's rounding of each other may flip either
+        # way. A pixel is decided where its f32 gap exceeds twice the plain
+        # stem's bf16 logit error there (so bf16 plain must take f32's label:
+        # K2 plays no part in the mask); there the fused stem's bf16 labels
+        # must agree with the plain stem's on 0.99 of pixels, in each frame
+        # and in its last 16 rows (the stem's edge tile)
+        decided = gap > 2 * err
+        eq = outs[bf_fused][0] == outs[bf_plain][0]
+        per_frame = [float(eq[i][decided[i]].mean()) for i in range(INFER_FRAMES)]
+        edge = float(eq[:, -16:][decided[:, -16:]].mean())
+        log(f"  17f bf16 fused vs bf16 plain where the f32 gap > 2 x the plain bf16 error "
+            f"({float(decided.mean()):.6f} of pixels; bf16 plain vs f32 there "
+            f"{agree(bf_plain, f32_plain, decided):.6f}): frames "
+            + ", ".join(f"{v:.6f}" for v in per_frame) + f", last 16 rows {edge:.6f} (bar 0.99)")
+        check(decided.mean() >= 0.5, "17f: bf16's error leaves under half the pixels decided")
+        check(min(per_frame + [edge]) >= 0.99,
+              "17f: the fused stem's bf16 labels disagree with the plain stem's")
+        for key in (bf_fused, bf_plain, f32_fused):
+            fwd = outs[key][1]
+            log(f"  {card}: 17f inference {key[0]}, fuse_stem {key[1]}: "
+                f"{len(fwd) / sum(fwd):.2f} frames/s ({1e3 * sum(fwd) / len(fwd):.1f} ms a "
+                "frame: forward, argmax and the labels' copy to the host; first skipped)")
+        log("  K2 at the inference levels (batch 1, 1080x1920) vs stem_pool_reference:")
+        profile_stem.check_routes(gen, dev, log, shapes=levels(1, VAL_HEIGHT, VAL_WIDTH))
+
+        # the trainers left their rescue handlers and log files behind
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, signal.SIG_DFL if sig == signal.SIGTERM
+                          else signal.default_int_handler)
+        root = logging.getLogger()
+        for hnd in list(root.handlers):
+            root.removeHandler(hnd)
+            hnd.close()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1343,6 +1796,13 @@ def main() -> int:
         "source": "doubly_contrastive_semseg_tpu_torch/csrc/jfa.cu",
         "replaces": "doubly_contrastive_semseg_tpu/ops/edt.py:88",
         "launches": jf_launches, "max_abs_err": jf_err, **jf_t})
+
+    # 17. the runtime and its CLIs
+    runtime = runtime_phase(torch, dev, card, profile_stem)
+    kernels[0]["trainer_launches"] = {"validate, 2 epochs": runtime["k2_validate"],
+                                      "test_only": runtime["k2_test_only"]}
+    kernels[0]["inference_launches"] = runtime["k2_inference"]
+    kernels[-1]["trainer_launches"] = runtime["jf_trainer"]
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

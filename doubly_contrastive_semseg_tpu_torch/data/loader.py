@@ -108,6 +108,7 @@ class DataLoader:
         # early (or a bare next(iter(loader))) leaves the producer blocked on
         # q.put forever, leaking the worker pool + prefetched batches
         stop = threading.Event()
+        pending: deque = deque()  # [futures] per in-flight batch
 
         def _put(item) -> bool:
             while not stop.is_set():
@@ -123,7 +124,6 @@ class DataLoader:
             # of upcoming batches, so the pool is never idle at a batch
             # boundary. The window keeps >= 2 x num_workers samples in
             # flight; with one worker, submission order is execution order.
-            pending: deque = deque()  # [futures] per in-flight batch
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
                     window = max(self.prefetch + 1,
@@ -169,8 +169,14 @@ class DataLoader:
                     return
                 yield item
         finally:
-            # runs on GeneratorExit (close/GC of an abandoned iterator) too
+            # runs on GeneratorExit (close/GC of an abandoned iterator) too;
+            # cancelling the samples not yet started lets the process exit
+            # once the workers finish the ones they hold (tuple() copies the
+            # deque without releasing the GIL)
             stop.set()
+            for futs in tuple(pending):
+                for f in futs:
+                    f.cancel()
 
 
 def to_device(batch: Dict, device, class_weight=None) -> Dict:

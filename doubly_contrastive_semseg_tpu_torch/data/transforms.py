@@ -148,16 +148,19 @@ def _bicubic_filter(t: np.ndarray) -> np.ndarray:
 _FILTERS = {"bilinear": (_bilinear_filter, 1.0), "bicubic": (_bicubic_filter, 2.0)}
 
 
-def _pil_coeffs(in_size: int, out_size: int, filt, support: float):
+def _pil_coeffs(in_size: int, out_size: int, filt, support: float, span=None):
     """Resample.c ``precompute_coeffs`` (the filter's support scaled by the
     downscale factor) and ``normalize_coeffs_8bpc``: each output's first
     tap and its int32 fixed-point weights (out_size, ksize), normalised in
-    double in Pillow's order, 0 past the output's tap count."""
-    scale = in_size / out_size
+    double in Pillow's order, 0 past the output's tap count. ``span`` is
+    the source interval (in0, in1) of a resize box, float32 as Pillow
+    parses it; None is the whole axis."""
+    in0, in1 = (0.0, float(in_size)) if span is None else map(np.float32, span)
+    scale = float(np.float32(in1) - np.float32(in0)) / out_size
     filterscale = max(scale, 1.0)
     support = support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
-    center = (np.arange(out_size) + 0.5) * scale
+    center = float(in0) + (np.arange(out_size) + 0.5) * scale
     ss = 1.0 / filterscale
     xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
     xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
@@ -174,13 +177,15 @@ def _pil_coeffs(in_size: int, out_size: int, filt, support: float):
     return xmin, kk
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int, kind: str) -> np.ndarray:
+def _resample_axis(img: np.ndarray, out_size: int, axis: int, kind: str,
+                   span=None) -> np.ndarray:
     """One pass of Resample.c's ``ImagingResample{Horizontal,Vertical}_8bpc``
-    along ``axis`` of a uint8 array: int32 sums from half a unit, shifted
-    down and clipped to uint8. The pass runs on a contiguous (in_size, -1)
-    copy, so each tap gathers whole rows."""
+    along ``axis`` of a uint8 array (over ``span`` of it, see
+    ``_pil_coeffs``): int32 sums from half a unit, shifted down and clipped
+    to uint8. The pass runs on a contiguous (in_size, -1) copy, so each tap
+    gathers whole rows."""
     in_size = img.shape[axis]
-    xmin, kk = _pil_coeffs(in_size, out_size, *_FILTERS[kind])
+    xmin, kk = _pil_coeffs(in_size, out_size, *_FILTERS[kind], span=span)
     src = np.moveaxis(img, axis, 0)
     rest = src.shape[1:]
     src = np.ascontiguousarray(src).reshape(in_size, -1)
@@ -194,19 +199,28 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int, kind: str) -> np.n
     return np.moveaxis(out, 0, axis)
 
 
-def _resize_pil(img: np.ndarray, size: Tuple[int, int], kind: str) -> np.ndarray:
+def _resize_pil(img: np.ndarray, size: Tuple[int, int], kind: str, box=None) -> np.ndarray:
     """``Image.resize(size, BILINEAR or BICUBIC)`` of a uint8 (H, W) or
     (H, W, C) array, ``size`` (w, h): the horizontal pass, then the
     vertical, each only where that side changes; the same size returns a
-    copy."""
+    copy. ``box`` (x0, y0, x1, y1) is the ``im.resize`` box of the source
+    region (``ImagingResampleInner``: a pass wherever the box is not the
+    output's extent)."""
     w, h = size
     out = np.asarray(img)
     if out.dtype != np.uint8:
         raise TypeError(f"resize_{kind}_pil: a uint8 image, got {out.dtype}")
-    if w != out.shape[1]:
-        out = _resample_axis(out, w, 1, kind)
-    if h != out.shape[0]:
-        out = _resample_axis(out, h, 0, kind)
+    if box is None:
+        if w != out.shape[1]:
+            out = _resample_axis(out, w, 1, kind)
+        if h != out.shape[0]:
+            out = _resample_axis(out, h, 0, kind)
+        return np.array(out)
+    x0, y0, x1, y1 = (float(np.float32(v)) for v in box)
+    if w != out.shape[1] or x0 != 0 or x1 != w:
+        out = _resample_axis(out, w, 1, kind, span=(x0, x1))
+    if h != out.shape[0] or y0 != 0 or y1 != h:
+        out = _resample_axis(out, h, 0, kind, span=(y0, y1))
     return np.array(out)
 
 
@@ -218,6 +232,75 @@ def resize_bilinear_pil(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
 def resize_bicubic_pil(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """``Image.resize(size, Image.BICUBIC)`` of a uint8 array, bit for bit."""
     return _resize_pil(img, size, "bicubic")
+
+
+def reduce_pil(img: np.ndarray, factor: Tuple[int, int], box=None) -> np.ndarray:
+    """``Image.reduce(factor, box)`` of a uint8 (H, W) or (H, W, C) array
+    (``src/libImaging/Reduce.c``): each output pixel is the mean of its
+    factor_x × factor_y block of ``box`` (x0, y0, x1, y1), the blocks of
+    the last row and column cut by the box, as ``((sum + n // 2) · m) >>
+    24`` with n the block's pixel count and m = ⌊2³² / (256 n)⌋ divided in
+    float32 (``division_UINT32``)."""
+    fx, fy = factor
+    img = np.asarray(img)
+    x0, y0, x1, y1 = box if box is not None else (0, 0, img.shape[1], img.shape[0])
+    region = img[y0:y1, x0:x1].astype(np.uint64)
+    h, w = region.shape[:2]
+    oh, ow = -(-h // fy), -(-w // fx)
+    padded = np.zeros((oh * fy, ow * fx) + region.shape[2:], np.uint64)
+    padded[:h, :w] = region
+    sums = padded.reshape((oh, fy, ow, fx) + region.shape[2:]).sum(axis=(1, 3))
+    ny = np.minimum(fy, h - fy * np.arange(oh))
+    nx = np.minimum(fx, w - fx * np.arange(ow))
+    n = (ny[:, None] * nx[None, :]).astype(np.uint64)
+    m = (np.float32(4294967296.0) / (n * 256).astype(np.float32)).astype(np.uint64)
+    if sums.ndim == 3:
+        n, m = n[..., None], m[..., None]
+    return (((sums + n // 2) * m) >> 24).astype(np.uint8)
+
+
+def thumbnail_pil(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """``Image.thumbnail(size)`` of a uint8 (H, W) or (H, W, 3) array, as a
+    new array: the largest size within ``size`` that keeps the aspect
+    (Pillow's rounding), reached by ``reduce`` with the factor that leaves
+    at least twice the target (``reducing_gap`` 2.0) over the box that the
+    bicubic filter reads (``_get_safe_box``), then the bicubic resize of
+    the reduced box."""
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    x, y = (math.floor(v) for v in size)
+    if x >= w and y >= h:
+        return img.copy()
+
+    def round_aspect(number, key):
+        return max(min(math.floor(number), math.ceil(number), key=key), 1)
+
+    aspect = w / h
+    if x / y >= aspect:
+        x = round_aspect(y * aspect, key=lambda n: abs(aspect - n / y))
+    else:
+        y = round_aspect(x / aspect, key=lambda n: 0 if n == 0 else abs(aspect - x / n))
+    if (x, y) == (w, h):
+        return img.copy()
+    box = (0, 0, w, h)
+    fx, fy = int(w / x / 2.0) or 1, int(h / y / 2.0) or 1
+    if fx > 1 or fy > 1:
+        support = 2.0 - 0.5                  # bicubic's support less half a pixel
+        sx, sy = support * w / x, support * h / y
+        rb = (max(0, int(0 - sx)), max(0, int(0 - sy)),
+              min(w, math.ceil(w + sx)), min(h, math.ceil(h + sy)))
+        img = reduce_pil(img, (fx, fy), rb)
+        box = ((0 - rb[0]) / fx, (0 - rb[1]) / fy, (w - rb[0]) / fx, (h - rb[1]) / fy)
+    return _resize_pil(img, (x, y), "bicubic", box)
+
+
+def blend_pil(a: np.ndarray, b: np.ndarray, alpha: float) -> np.ndarray:
+    """``Image.blend(a, b, alpha)`` of two uint8 arrays of one shape, for
+    ``alpha`` in [0, 1] (``ImagingBlend``): a + alpha · (b − a) in float32,
+    truncated to uint8."""
+    a, b = np.asarray(a), np.asarray(b)
+    diff = (b.astype(np.int32) - a.astype(np.int32)).astype(np.float32)
+    return (a.astype(np.float32) + np.float32(alpha) * diff).astype(np.uint8)
 
 
 def _nearest_index(in_size: int, out_size: int) -> np.ndarray:

@@ -54,3 +54,10 @@ def label_params_for_optimizer(model: nn.Module, cfg) -> Dict[str, str]:
     """{parameter name: group label} over ``model.named_parameters()``."""
     return {name: label_for_path(name.split("."), cfg)
             for name, _ in model.named_parameters()}
+
+
+def count_parameters(model: nn.Module) -> int:
+    """The number of parameter elements, with the stem as the reference's
+    dense 7×7×3×64 kernel (the JAX package stores it as a 4×4×12×64 s2d
+    kernel whose 2,880 masked-off taps its own count includes)."""
+    return sum(p.numel() for p in model.parameters())
