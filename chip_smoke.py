@@ -100,6 +100,22 @@ f32 on 0.999 of pixels, bf16 on 0.99 of those whose f32 top-two logit gap
 exceeds twice the plain stem's bf16 logit error, in each frame and in its
 last 16 rows (f).
 
+Last, the DeepLab family and ENet (phase 18, its own generator):
+``deeplabv3plus_resnet101`` at the published recipe (768², batch 8 × 2
+views or the largest that fits, bf16, 4 steps), then one small f32 step on
+the card against the CPU from the same weights and dropout masks, and its
+dilated bottlenecks and ASPP one at a time, to phase 7b's tolerances (a);
+the same model at the dense-contrast size (batch 216 on 96²), K3 4 and K4
+3 launches a step at D = 2048, the kernel route's loss and dZ against the
+plain route's on one step's anchors to a tolerance scaled by the logits'
+size, then K3 and K4 alone at N = 8208 and D = 320, 480, 720 and 2048,
+held to their plain versions and timed (b); its eval step and the
+generic serving branch at 2048×1024 batch 8 bf16 with no K1, K2 or K5
+launch, and f32 serving labels card vs CPU (c); every other ported DeepLab
+name and ENet for one bf16 train step and one eval batch (d); and ``main
+--model deeplabv3plus_resnet101`` for an epoch of 2 steps, ``--test_only``
+on its checkpoint and ``inference`` on 2 PNGs (e).
+
 Any failure raises and exits non-zero; so does a machine without CUDA or a
 directory without the package. The last line is ``{"ok": true, "device":
 {...}}``; the line before it lists each kernel's launches, error and times.
@@ -107,6 +123,7 @@ directory without the package. The last line is ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -126,6 +143,10 @@ SYNTHETIC_HW, SYNTHETIC_SIZE = "1024x2048", 48   # crop_wh: the published 768²
 HOST_SIZE = 24                          # host-augmented synthetic: 3 steps an epoch
 ACDC_TRAIN, ACDC_VAL = 24, 12           # ACDC from PNG: 3 steps an epoch, val batches 8 + 4
 RUNTIME_SIZE, INFER_FRAMES = 16, 4      # phase 17: 2 steps an epoch, a val split of 4 frames
+DEEPLAB = "deeplabv3plus_resnet101"     # phase 18: the DeepLab family's flagship
+DEEPLAB_STEPS = 4
+DEEPLAB_SMALL = (4, 128)                # 18a's card-vs-CPU f32 step: batch, crop
+OTHER_CROP = 256                        # 18d: the other names' train step
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1536,6 +1557,420 @@ def runtime_phase(torch, dev, card, profile_stem):
     return out
 
 
+def fixed_dropout_masks(torch, model, gen, cache):
+    """Every ``Dropout`` of ``model`` keeps one mask, drawn on the CPU from
+    ``gen`` at its first call and stored in ``cache`` under the module's
+    name, so that two models sharing ``cache`` (the card's and the CPU's)
+    drop the same elements."""
+    from doubly_contrastive_semseg_tpu_torch.models.blocks import Dropout
+
+    for name, m in model.named_modules():
+        if isinstance(m, Dropout):
+            def keep(x, name=name, m=m):
+                if name not in cache:
+                    b, c, h, w = x.shape
+                    shape = (b, 1, 1, c) if m.spatial else (b, h, w, c)
+                    cache[name] = (torch.rand(shape, generator=gen) >= m.p).permute(0, 3, 1, 2)
+                return cache[name].to(x.device)
+            m.keep_mask = keep
+
+
+def finite(comps) -> bool:
+    return all(v == v and abs(v) < float("inf") for v in comps.values())
+
+
+def deeplab_train_phase(torch, dev, card, gen, reset, read):
+    """18a. ``DEEPLAB`` at the published recipe (``DEEPLAB_STEPS`` steps;
+    the largest batch that fits, from 8 down), then one small f32 step on
+    the card against the CPU from the same weights and dropout masks, and
+    its blocks one at a time, to the flagship's card-vs-CPU tolerances.
+    Returns {"batch", "ms_step", "peak_gb"}."""
+    from doubly_contrastive_semseg_tpu_torch import Config, build_model
+    from doubly_contrastive_semseg_tpu_torch.tools.profile_train import make_batch
+    from doubly_contrastive_semseg_tpu_torch.train import (
+        TrainState, build_optimizer, compute_loss, make_train_step)
+
+    cfg = Config(model=DEEPLAB, criterion=CRITERION, dataset="acdc")
+    torch.backends.cudnn.benchmark = True
+    b = TRAIN_BATCH
+    while True:
+        log(f"== 18a. {DEEPLAB} training: {TRAIN_CROP}² crops, batch {b} x 2 views, bf16, "
+            f"{CRITERION}, {DEEPLAB_STEPS} steps")
+        try:
+            model = build_model(cfg, device=dev, seed=0)
+            aspp = model.classifier.aspp
+            check([c[0].dilation for c in aspp.convs[1:4]] == [(6, 6), (12, 12), (18, 18)]
+                  and aspp.project[0].out_channels == 256 and len(model.backbone.layer3) == 23
+                  and model.weather_clf.fc.in_features == 2048
+                  and model.backbone.layer4[1].conv2.dilation == (2, 2),
+                  "18a: ResNet-101 at output stride 16, ASPP 256 at rates 6/12/18, 2048 out")
+            opt = build_optimizer(model, cfg, steps_per_epoch=200)
+            state = TrainState(model, opt)
+            step = make_train_step(model, cfg, opt)
+            batch = make_batch(b, TRAIN_CROP, gen, dev)
+            reset()
+            times = []
+            for i in range(DEEPLAB_STEPS):
+                if i == 1:
+                    torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics = step(state, batch, torch.Generator(device=dev).manual_seed(i))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                comps = {k: v.item() for k, v in metrics.items()}
+                check(finite(comps), f"18a step {i}: a loss is not finite: {comps}")
+                log(f"  step {i}: {1e3 * times[-1]:.1f} ms; "
+                    + ", ".join(f"{k} {v:.4f}" for k, v in comps.items()))
+            break
+        except torch.cuda.OutOfMemoryError:
+            model = opt = state = step = batch = metrics = None
+            torch.cuda.empty_cache()
+            check(b > 1, "18a: batch 1 x 2 views does not fit")
+            log(f"  batch {b} x 2 views does not fit on the card: halving it")
+            b //= 2
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect_launches(read(), f"18a {DEEPLAB}, {DEEPLAB_STEPS} steps (pixel contrast N = "
+                    f"{b * 19 * 2} < 8192: the plain route)")
+    ms_step = 1e3 * sum(times[1:]) / len(times[1:])
+    steady = 1e3 * sum(times[2:]) / len(times[2:])
+    log(f"  {card}: 18a {DEEPLAB} {TRAIN_CROP}² batch {b} x 2 views bf16: {ms_step:.2f} ms a "
+        f"step over steps 2-{DEEPLAB_STEPS} ({', '.join(f'{1e3 * t:.2f}' for t in times[1:])}; "
+        f"step 1 {1e3 * times[0]:.1f} tunes cuDNN), {steady:.2f} over steps 3-{DEEPLAB_STEPS}, "
+        f"{b * 1e3 / steady:.2f} samples/s there; peak memory {peak_gb:.2f} GB")
+    del model, opt, state, step, batch, metrics
+    torch.cuda.empty_cache()
+
+    # one small f32 step, card vs CPU, from the same weights and dropout masks
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    cfg32 = Config(model=DEEPLAB, criterion=CRITERION, dataset="acdc", reference_rng=True,
+                   compute_dtype="float32")
+    sb, scrop = DEEPLAB_SMALL
+    small = make_batch(sb, scrop, gen, "cpu")
+    base = build_model(cfg32, device="cpu", seed=4)
+    masks, results = {}, {}
+    for where in (dev, "cpu"):
+        m = copy.deepcopy(base).to(where).train()
+        fixed_dropout_masks(torch, m, gen, masks)
+        total, comps, _ = compute_loss(m, cfg32, {k: v.to(where) for k, v in small.items()},
+                                       None)
+        total.backward()
+        results[where] = ({k: v.item() for k, v in comps.items()},
+                          {k: p.grad.cpu() for k, p in m.named_parameters()
+                           if p.grad is not None})
+        del m
+    (c_gpu, g_gpu), (c_cpu, g_cpu) = results[dev], results["cpu"]
+    gate_free = ("classifier.classifier.3.weight", "classifier.classifier.3.bias",
+                 "projection.fc2.weight", "projection.fc2.bias")
+    comp_rel = max(abs(c_gpu[k] - c_cpu[k]) / max(abs(c_cpu[k]), 1e-30) for k in c_cpu)
+    max_rel = {k: rel_err(torch, g_gpu[k], g_cpu[k]) for k in g_cpu}
+    gate_free_err = max(max_rel[k] for k in gate_free)
+    worst = max(max_rel, key=max_rel.get)
+    log(f"  small f32 step ({sb} x 2 views, {scrop}²) card vs CPU: loss components max rel "
+        f"err {comp_rel:.2e} (tolerance 1e-4); gradients of the gate-free tensors "
+        f"{gate_free_err:.2e} of max|g| (tolerance 1e-3); {len(g_cpu)} tensors, the "
+        f"largest error {max_rel[worst]:.2e} of max|g| in {worst} (not held: phase 7b)")
+    check(set(g_gpu) == set(g_cpu) and set(gate_free) <= set(g_cpu) and finite(c_gpu)
+          and comp_rel <= 1e-4 and gate_free_err <= 1e-3,
+          f"18a: the card's {DEEPLAB} step disagrees with the CPU path")
+
+    def nchw(*shape):
+        return torch.randn(*shape, generator=gen).contiguous(memory_format=torch.channels_last)
+
+    fixed_dropout_masks(torch, base, gen, {})
+    spread = nchw(4, 2048, 6, 6) + 3 * nchw(4, 2048, 1, 1)   # the pooling BN's batch spread
+    cases = (("backbone.layer3.1 (dilation 1)", base.backbone.layer3[1], [nchw(4, 1024, 6, 6)]),
+             ("backbone.layer4.1 (dilation 2)", base.backbone.layer4[1], [nchw(4, 2048, 6, 6)]),
+             ("classifier.aspp (dropout mask fixed)", base.classifier.aspp, [spread]))
+    for name, block, inputs in cases:
+        errs = block_errors(torch, block, inputs, dev, gen)
+        log(f"  block {name} card vs CPU: output {errs['output']:.2e}, gradients "
+            f"{errs['grads']:.2e}, running stats {errs['stats']:.2e} of max|.| "
+            f"(tolerances 1e-4, 1e-3, 1e-4)")
+        check(errs["output"] <= 1e-4 and errs["grads"] <= 1e-3 and errs["stats"] <= 1e-4,
+              f"18a block {name}: the card disagrees with the CPU")
+    torch.backends.cudnn.deterministic = False
+    del base, results, g_gpu, g_cpu
+    return {"batch": b, "ms_step": ms_step, "steady_ms": steady, "peak_gb": peak_gb}
+
+
+def deeplab_dense_phase(torch, dev, card, gen, reset, read, profile_contrastive):
+    """18b. ``DEEPLAB`` at the dense-contrast size (batch ``DENSE_BATCH`` on
+    ``DENSE_CROP``², 3 steps): K3 ``LAUNCHES`` times and K4's layout and
+    sweep once a step at D = 2048; on one step's anchors, the kernel
+    route's loss and dZ against the plain route's; then K3 and K4 alone at
+    N = 8208 and D = 320, 480, 720, 2048 (``profile_contrastive.wide_d``).
+    Returns the launches of the 3 steps and ``wide_d``'s numbers."""
+    from doubly_contrastive_semseg_tpu_torch import Config, build_model
+    from doubly_contrastive_semseg_tpu_torch.losses.pixel_contrast import (
+        _hard_anchor_sampling, _masked_contrastive)
+    from doubly_contrastive_semseg_tpu_torch.ops import contrastive
+    from doubly_contrastive_semseg_tpu_torch.ops.interpolate import resize_nearest
+    from doubly_contrastive_semseg_tpu_torch.tools.profile_contrastive import LAUNCHES
+    from doubly_contrastive_semseg_tpu_torch.tools.profile_train import make_batch
+    from doubly_contrastive_semseg_tpu_torch.train import (
+        TrainState, build_optimizer, make_train_step)
+
+    n_rows = DENSE_BATCH * 19 * 2
+    log(f"== 18b. {DEEPLAB} dense-contrast step: batch {DENSE_BATCH} x 2 views at "
+        f"{DENSE_CROP}², bf16; pixel contrast N = {n_rows}, D = 2048")
+    cfg = Config(model=DEEPLAB, criterion=CRITERION, dataset="acdc")
+    torch.backends.cudnn.benchmark = False   # cuDNN's heuristics: no 15 s of tuning
+    model = build_model(cfg, device=dev, seed=1)
+    opt = build_optimizer(model, cfg, steps_per_epoch=200)
+    state = TrainState(model, opt)
+    step = make_train_step(model, cfg, opt)
+    batch = make_batch(DENSE_BATCH, DENSE_CROP, gen, dev)
+    kernels = {"contrastive_row_stats": contrastive.contrastive_row_stats,
+               "pos_sweep_layout": contrastive.pos_sweep_layout,
+               "pixel_contrast_pos_sweep": contrastive.pixel_contrast_pos_sweep}
+    reset()
+    times = []
+    for i in range(3):
+        before = {k: fn.launches for k, fn in kernels.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, batch, torch.Generator(device=dev).manual_seed(i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        comps = {k: v.item() for k, v in metrics.items()}
+        d3, d_layout, d4 = (fn.launches - before[k] for k, fn in kernels.items())
+        log(f"  step {i}: {1e3 * times[-1]:.1f} ms, K3 launches {d3}, K4 layouts {d_layout} "
+            f"and sweeps {d4}; " + ", ".join(f"{k} {v:.5f}" for k, v in comps.items()))
+        check(d3 == LAUNCHES and d_layout == 1 and d4 == 1,
+              f"18b: each step must launch K3 {LAUNCHES} times and K4's layout and sweep once")
+        check(finite(comps), f"18b step {i}: a loss is not finite")
+    launches = read()
+    check(all(v == 0 for k, v in launches.items() if k not in kernels),
+          f"18b: only K3 and K4 may launch: {launches}")
+    log(f"  {card}: 18b {1e3 * sum(times[1:]) / 2:.2f} ms a step over steps 2-3 "
+        f"({', '.join(f'{1e3 * t:.2f}' for t in times)} for steps 1-3); launches in 3 steps "
+        f"{launches}")
+
+    # the kernel route against the plain route on one step's anchors (f32)
+    model.train()
+    with torch.no_grad():
+        out = model(batch["left"].float(), return_supcon_feature=True)
+        feats = out["fine_feat0"]
+        b, h, w, d = feats.shape
+        preds = resize_nearest(out["seg_beforeup"].argmax(-1), (h, w))
+        labels = resize_nearest(batch["label"], (h, w))
+        anchors, a_lab, a_val = _hard_anchor_sampling(
+            feats.reshape(b, h * w, d).float(), labels.reshape(b, -1),
+            preds.reshape(b, -1).to(labels.dtype), 19, torch.Generator(device=dev).manual_seed(7))
+    del out, feats, preds
+    res = []
+    for use_kernel in (True, False):
+        x = anchors.detach().clone().requires_grad_(True)
+        loss = _masked_contrastive(x, a_lab, a_val, 0.07, 0.07, use_kernel=use_kernel)
+        loss.backward()
+        res.append((loss.item(), x.grad))
+    z = torch.cat([anchors[:, 0], anchors[:, 1]]).float()
+    _, _, _, m, nrm = contrastive.contrastive_row_stats(
+        z, a_lab.repeat(2), a_val.repeat(2), neg_mode=True)
+    valid = a_val.repeat(2).bool()
+    # l̂ = (l − m)/n: an error in a logit, relative to the largest |l| (an
+    # f32 sum of D = 2048 products errs by ~√D ulps, ≲ 1e-5 of it), moves
+    # l̂ by up to kappa times as much; the loss and dZ are held to that
+    kappa = (z.norm(dim=1).max() ** 2 / 0.07 / nrm[valid].min()).item()
+    d_loss = abs(res[0][0] - res[1][0])
+    d_grad = ((res[0][1] - res[1][1]).abs().max() / res[1][1].abs().max()).item()
+    loss_tol, grad_tol = 1e-5 * kappa * max(abs(res[1][0]), 1.0), 1e-4 * kappa
+    log(f"  anchors (N = {z.shape[0]}, D = {z.shape[1]}, {int(valid.sum())} valid rows): max "
+        f"|logit| {z.norm(dim=1).max().item() ** 2 / 0.07:.4g}, smallest row norm "
+        f"{nrm[valid].min().item():.4g}, kappa {kappa:.4g}; loss kernel {res[0][0]:.7f}, "
+        f"plain {res[1][0]:.7f} (|diff| {d_loss:.2e}, tolerance 1e-5·kappa·max(|loss|, 1) = "
+        f"{loss_tol:.2e}); dZ max abs err {d_grad:.2e} of max|dZ| (tolerance 1e-4·kappa = "
+        f"{grad_tol:.2e})")
+    check(d_loss <= loss_tol and d_grad <= grad_tol,
+          "18b: the kernel route's loss or dZ disagrees with the plain route at D = 2048")
+    del model, opt, state, step, batch, metrics, anchors, res, z
+    torch.cuda.empty_cache()
+    log(f"  K3 and K4 alone at N = {n_rows}, the DeepLab family's widths (f32):")
+    wide = profile_contrastive.wide_d(gen, dev, log)
+    return launches, wide
+
+
+def deeplab_eval_phase(torch, dev, card, gen, reset, read):
+    """18c. ``DEEPLAB`` at ``WIDTH``×``HEIGHT``, batch ``BATCH``, bf16: eval
+    frames/s through ``make_eval_step`` and serving frames/s through the
+    generic branch of ``make_serving_fn``, with no K1, K2 or K5 launch; the
+    serving labels at f32 on a small input, card vs CPU, on 0.999 of the
+    pixels. Returns {"eval_fps", "serve_fps"}."""
+    from doubly_contrastive_semseg_tpu_torch import Config, build_model, make_serving_fn
+    from doubly_contrastive_semseg_tpu_torch.train import init_eval_accum, make_eval_step
+
+    log(f"== 18c. {DEEPLAB} eval and serving: {WIDTH}x{HEIGHT}, batch {BATCH}, bf16")
+    torch.backends.cudnn.benchmark = True
+    cfg = Config(model=DEEPLAB, dataset="acdc")
+    model = build_model(cfg, device=dev, seed=2)
+    randomize_bn(model.cpu(), gen)
+    model.to(dev)
+    image = torch.randint(0, 256, (BATCH, HEIGHT, WIDTH, 3), generator=gen,
+                          dtype=torch.uint8).to(dev)
+    batch = {"left": image,
+             "label": torch.randint(0, 19, (BATCH, HEIGHT, WIDTH), generator=gen,
+                                    dtype=torch.int32).to(dev),
+             "weather": torch.randint(0, 4, (BATCH,), generator=gen, dtype=torch.int32).to(dev)}
+    eval_step, serve = make_eval_step(model, cfg), make_serving_fn(model, device=dev)
+    accum = init_eval_accum(cfg, dev)
+    reset()
+    for _ in range(2):
+        preds, accum = eval_step(batch, accum)
+        labels = serve(image)
+    torch.cuda.synchronize()
+    check(tuple(preds.shape) == (BATCH, HEIGHT, WIDTH) and labels.dtype == torch.int8
+          and tuple(labels.shape) == (BATCH, HEIGHT, WIDTH)
+          and float(accum["cm"].sum()) == 2 * BATCH * HEIGHT * WIDTH,
+          "18c: eval predictions, confusion counts and serving labels")
+    rates = {}
+    for what, fn in (("eval", lambda: eval_step(batch, accum)), ("serve", lambda: serve(image))):
+        windows = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            windows.append(5 * BATCH / (time.perf_counter() - t0))
+        rates[what] = windows
+    expect_launches(read(), "18c eval and serving (generic branch: no K1, K2, K5)")
+    log(f"  {card}: 18c eval {BATCH * 3 / sum(BATCH / f for f in rates['eval']):.2f} frames/s "
+        f"(windows {', '.join(f'{f:.2f}' for f in rates['eval'])}), serving "
+        f"{BATCH * 3 / sum(BATCH / f for f in rates['serve']):.2f} frames/s (windows "
+        f"{', '.join(f'{f:.2f}' for f in rates['serve'])})")
+    del model, eval_step, serve, batch, image, accum, preds, labels
+    torch.cuda.empty_cache()
+
+    # f32 serving labels on a small input, card vs CPU
+    torch.backends.cudnn.benchmark = False
+    cfg32 = Config(model=DEEPLAB, compute_dtype="float32")
+    cpu = build_model(cfg32, device="cpu", seed=3)
+    randomize_bn(cpu, gen)
+    card_model = copy.deepcopy(cpu).to(dev)
+    x = torch.randint(0, 256, (2, 256, 512, 3), generator=gen).float()
+    lab_gpu = make_serving_fn(card_model, device=dev)(x.to(dev)).cpu()
+    lab_cpu = make_serving_fn(cpu, device="cpu")(x)
+    agree = (lab_gpu == lab_cpu).float().mean().item()
+    log(f"  f32 serving labels 2 x 256 x 512, card vs CPU: agreement {agree:.6f} (bar 0.999)")
+    check(lab_gpu.shape == (2, 256, 512) and agree >= 0.999,
+          "18c: the card's serving labels disagree with the CPU's")
+    del cpu, card_model
+    return {"eval_fps": rates["eval"], "serve_fps": rates["serve"]}
+
+
+def other_models_phase(torch, dev, card, gen, reset, read):
+    """18d. Every other ported DeepLab name and ``enet``, once: built on the
+    card, one bf16 train step at 2 × 2 views of 256², one eval batch;
+    finite outputs of JAX's contract shapes (``tests/test_models.py``)."""
+    from doubly_contrastive_semseg_tpu_torch import Config, build_model
+    from doubly_contrastive_semseg_tpu_torch.config import PORTED_MODELS
+    from doubly_contrastive_semseg_tpu_torch.tools.profile_train import make_batch
+    from doubly_contrastive_semseg_tpu_torch.train import (
+        TrainState, build_optimizer, compute_loss, make_eval_step, init_eval_accum)
+
+    names = [m for m in PORTED_MODELS if m == "enet"
+             or (m.startswith("deeplabv3") and m != DEEPLAB)]
+    log(f"== 18d. the other {len(names)} ported names: one bf16 train step (2 x 2 views, "
+        f"{OTHER_CROP}²) and one eval batch each")
+    torch.backends.cudnn.benchmark = False
+    b, s = 2, OTHER_CROP
+    batch = make_batch(b, s, gen, dev)
+    reset()
+    for name in names:
+        t0 = time.perf_counter()
+        cfg = Config(model=name, criterion=CRITERION, dataset="acdc")
+        model = build_model(cfg, device=dev, seed=5)
+        opt = build_optimizer(model, cfg, steps_per_epoch=200)
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        total, comps, out = compute_loss(model, cfg, batch, torch.Generator(device=dev).manual_seed(0))
+        total.backward()
+        opt.step()
+        shapes = {k: tuple(v.shape) for k, v in out.items()}
+        ok = (shapes["seg"] == (b, s, s, 19) and shapes["fine_feat"][0] == 2 * b
+              and shapes["fine_feat0"][0] == b and shapes["supcon_proj"] == (b, 2, 128)
+              and shapes["weather_logits"] == (b, 4)
+              and (name == "enet" or shapes["fine_feat0"][1:3] == shapes["seg_beforeup"][1:3]))
+        comps = {k: v.item() for k, v in comps.items()}
+        grads_ok = all(torch.isfinite(p.grad).all().item() for p in model.parameters()
+                       if p.grad is not None)
+        preds, accum = make_eval_step(model, cfg)(
+            {"left": batch["left"][:b], "label": batch["label"], "weather": batch["weather"]},
+            init_eval_accum(cfg, dev))
+        torch.cuda.synchronize()
+        log(f"  {name}: fine_feat {shapes['fine_feat']}, seg_beforeup {shapes['seg_beforeup']}, "
+            f"loss {comps['total_loss']:.4f}, eval preds {tuple(preds.shape)}, "
+            f"{time.perf_counter() - t0:.1f} s")
+        check(ok and finite(comps) and grads_ok and tuple(preds.shape) == (b, s, s)
+              and float(accum["cm"].sum()) == float((batch["label"] != 255).sum()),
+              f"18d {name}: outputs {shapes}, losses {comps}, finite gradients {grads_ok}")
+        del model, opt, out, total, preds, accum
+        torch.cuda.empty_cache()
+    expect_launches(read(), f"18d ({len(names)} models, pixel contrast N = {b * 38} < 8192)")
+    del batch
+
+
+def deeplab_cli_phase(torch, dev, card, batch_size, reset, read):
+    """18e. ``main --model DEEPLAB``: one epoch of 2 steps (host crops, 1
+    loader thread) and 4 val frames, then ``--test_only`` on its
+    checkpoint; ``inference`` with that checkpoint on 2 PNGs of
+    ``VAL_WIDTH``×``VAL_HEIGHT``. No kernel launches on these paths."""
+    from doubly_contrastive_semseg_tpu_torch import inference as port_inference
+    from doubly_contrastive_semseg_tpu_torch.data import SyntheticDataset, read_png, write_png
+    from doubly_contrastive_semseg_tpu_torch.main import main as port_main
+
+    with tempfile.TemporaryDirectory() as base:
+        common = ["--dataset", "synthetic", "--synthetic_hw", SYNTHETIC_HW,
+                  "--synthetic_size", str(batch_size * 2), "--train_semantic",
+                  "--criterion", CRITERION, "--batch_size", str(batch_size),
+                  "--print_freq", "1", "--summary_freq", "1", "--run_root", base,
+                  "--device", dev.type, "--model", DEEPLAB]
+        log(f"== 18e. main --model {DEEPLAB}: 1 epoch of 2 steps (batch {batch_size} x 2 "
+            f"views, host crops), validate; --test_only; inference on 2 PNGs")
+        reset()
+        t0 = time.perf_counter()
+        tr = port_main(common + ["--epochs", "1", "--num_workers", "1", "--checkname", "a"])
+        dt = time.perf_counter() - t0
+        losses = scalars(tr.saver.experiment_dir, "train/total_loss_print_freq")
+        check(len(losses) == 2 and all(np.isfinite(v) for _, v in losses),
+              f"18e: 2 finite losses in metrics.jsonl: {losses}")
+        ((_, frames, wall),) = tr.val_times
+        best = os.path.join(tr.saver.checkpoint_dir, "score_best_checkpoint")
+        check(os.path.exists(best), "18e: main saved no score_best_checkpoint")
+        log(f"  {card}: 18e main: {dt:.2f} s (epoch {tr.epoch_seconds[0]:.2f} s); ms a step "
+            "(loader wait, step): " + ", ".join(f"({1e3 * s[1]:.1f}, {1e3 * s[2]:.1f})"
+                                                for s in tr.step_times)
+            + f"; val {frames} frames, {frames / wall:.2f} frames/s end to end; checkpoint "
+            f"{os.path.getsize(best) / 1e6:.2f} MB")
+        del tr
+        trc = port_main(common + ["--test_only", "--resume", best, "--checkname", "c"])
+        saved = torch.load(best, map_location="cpu", weights_only=True)["model"]
+        sd = trc.model.state_dict()
+        check(sd.keys() == saved.keys() and all(torch.equal(sd[k].cpu(), v)
+                                                for k, v in saved.items()),
+              "18e: --test_only restored other weights than the saved ones")
+        ((_, frames, wall),) = trc.val_times
+        log(f"  {card}: 18e --test_only: {frames} frames, {frames / wall:.2f} frames/s end to "
+            "end; state_dict bit for bit the saved one")
+        del trc, saved, sd
+        frames_dir, out_dir = os.path.join(base, "frames"), os.path.join(base, "out")
+        os.makedirs(frames_dir)
+        src = SyntheticDataset(size=2, image_hw=(VAL_HEIGHT, VAL_WIDTH), seed=18)
+        for i in range(2):
+            write_png(os.path.join(frames_dir, f"frame{i}.png"), src[i]["left"], "adaptive")
+        res = port_inference.main(["--input", frames_dir, "--resume", best, "--model", DEEPLAB,
+                                   "--device", dev.type, "--output_dir", out_dir])
+        for i in range(2):
+            pred = read_png(os.path.join(out_dir, f"frame{i}_pred.png"))
+            check(pred.shape == (VAL_HEIGHT, VAL_WIDTH) and int(pred.max()) < 19,
+                  f"18e: inference's frame{i}_pred.png")
+        log(f"  {card}: 18e inference: 2 frames, forward {res['forward_s'][1]:.4f} s for the "
+            "second")
+        expect_launches(read(), "18e main, --test_only, inference")
+
+
 def main() -> int:
     import torch
 
@@ -1545,7 +1980,8 @@ def main() -> int:
         return 1
     try:
         from doubly_contrastive_semseg_tpu_torch import Config, build_model, make_serving_fn
-        from doubly_contrastive_semseg_tpu_torch.ops import _build, contrastive, seghead, stem
+        from doubly_contrastive_semseg_tpu_torch.ops import (
+            _build, blend, contrastive, edt, seghead, stem)
         from doubly_contrastive_semseg_tpu_torch.tools import (
             profile_blend, profile_contrastive, profile_host_data, profile_jfa, profile_seghead,
             profile_stem)
@@ -1803,6 +2239,26 @@ def main() -> int:
                                       "test_only": runtime["k2_test_only"]}
     kernels[0]["inference_launches"] = runtime["k2_inference"]
     kernels[-1]["trainer_launches"] = runtime["jf_trainer"]
+
+    # 18. the DeepLab family and ENet; its own generator
+    t18 = time.perf_counter()
+    gen18 = torch.Generator().manual_seed(18)
+    reset, read = count_launches(stem, edt, contrastive, seghead, blend)
+    train18 = deeplab_train_phase(torch, dev, card, gen18, reset, read)
+    dense18, wide = deeplab_dense_phase(torch, dev, card, gen18, reset, read,
+                                        profile_contrastive)
+    deeplab_eval_phase(torch, dev, card, gen18, reset, read)
+    other_models_phase(torch, dev, card, gen18, reset, read)
+    deeplab_cli_phase(torch, dev, card, train18["batch"], reset, read)
+    for i, (name, k) in ((2, ("contrastive_row_stats", "k3")),
+                         (4, ("pixel_contrast_pos_sweep", "k4"))):
+        kernels[i]["deeplab"] = {
+            "launches": dense18[name], "n": DENSE_BATCH * 19 * 2,
+            "by_d": {d: {"ms": t[f"{k}_ms"], "plain_ms": t[f"{k}_plain_ms"],
+                         "bound_ms": t[f"{k}_bound_ms"], "bound_by": t[f"{k}_bound_by"],
+                         "max_abs_err": t[f"{k}_err"]} for d, t in wide.items()}}
+    kernels[3]["deeplab"] = {"launches": dense18["pos_sweep_layout"]}
+    log(f"== 18. done in {time.perf_counter() - t18:.1f} s")
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

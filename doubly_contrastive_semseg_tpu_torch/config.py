@@ -53,7 +53,9 @@ MODELS = (
 )
 
 STEREO_DATASETS = ("sceneflow", "kitti_2015", "kitti_mix")
-PORTED_MODELS = ("resnet18", "resnet34")
+# every name of MODELS but the WeatherNet backbones of ROADMAP.md §1 item 4
+PORTED_MODELS = ("resnet18", "resnet34", "enet") + tuple(
+    m for m in MODELS if m.startswith("deeplabv3"))
 
 # num_classes by dataset (reference utils/init_trainer.py:40-48)
 NUM_CLASSES = {"cityscapes": 19, "kitti_2015": 19, "kitti_mix": 19, "acdc": 19,

@@ -52,12 +52,17 @@
 // - Products: K3's split-TF32 mma.sync m16n8k8 (hi = tf32(x), lo =
 //   tf32(x - hi); lo*hi + hi*lo + hi*hi, the small ones first), so K4's
 //   logits come from the same arithmetic as the m and n K3 gives; they
-//   differ only in the order the tensor cores sum in. The block's 32 rows
-//   are gathered through perm by cp.async once, all of D; its column tiles
-//   are staged 32 of D at a time into two buffers, one chunk ahead, with
-//   the tile's keys; all zero-filled past N and past D (D % 8 != 0
-//   included). Rows are 4 mod 32 floats apart, so fragment loads are free
-//   of bank conflicts. A warp holds 16 rows x 32 columns.
+//   differ only in the order the tensor cores sum in. Each item (a column
+//   tile's chunk of 32 of D) stages the tile's columns and the block's 32
+//   rows, gathered through perm by cp.async, into a ring of two buffers,
+//   one item ahead, with the tile's keys on its first chunk; all
+//   zero-filled past N and past D (D % 8 != 0 included). So shared memory
+//   (28 KB) does not grow with D, and any D >= 1 runs (the DeepLab family's
+//   pixel contrast: D = 320 to 2048). The first design held the rows'
+//   whole D (266 KB at D = 2048, more than a block has); at D = 128 on an
+//   H100 it was 1-4 % faster (PERF.md, K4). Rows are 4 mod 32 floats
+//   apart, so fragment loads are free of bank conflicts. A warp holds 16
+//   rows x 32 columns.
 // - Epilogue: lhat = (l - m_i) * (1 / n_i) and lhat - __logf(__expf(lhat)
 //   + s_i), kept on positives by a select; |lhat| <= 1 there. c is an
 //   exact integer count. Each lane sums its columns tile by tile, the 4
@@ -80,7 +85,6 @@ constexpr int WARP_M = 16, WARP_N = 32;    // logits a warp holds
 constexpr int NT = WARP_N / 8;             // mma tiles a warp, along columns
 constexpr int KC = 32;                     // D a column buffer stages
 constexpr int LDS = KC + 4;                // staged column stride, floats
-constexpr int MAX_D = 256;
 constexpr long long INVALID_KEY = 1LL << 40;
 constexpr int LAYOUT_ROWS = 32;            // rows a layout block places, one a lane
 constexpr int LAYOUT_THREADS = 256;        // its warps split the columns
@@ -90,8 +94,9 @@ constexpr int REDUCE_THREADS = 256;
 static_assert(ROWS == 32, "one lane a row of the tile");
 static_assert((ROWS / WARP_M) * (COLS / WARP_N) * 32 == THREADS, "the block's warp grid");
 
-struct Shared {                           // the staged rows follow it
+struct Shared {
   float zc[2][COLS * LDS];                // [buffer] a column chunk
+  float zr[2][ROWS * LDS];                // [buffer] the rows' chunk
   long long ckey[2][COLS];                // [tile parity] its keys
   float rm[ROWS], rrn[ROWS], rs[ROWS];    // the rows' m, 1 / n, s
   float red_q[2][ROWS];                   // [column warp] a row's partial
@@ -99,10 +104,7 @@ struct Shared {                           // the staged rows follow it
   int range[2];                           // the row tile's columns [begin, end)
 };
 
-constexpr size_t ROWS_OFFSET = (sizeof(Shared) + 15) / 16 * 16;
-
-// The staged rows' stride: all of D padded to whole chunks, 4 mod 32 floats.
-__host__ __device__ inline int row_stride(int D) { return (D + KC - 1) / KC * KC + 4; }
+static_assert(sizeof(Shared) <= 48 * 1024, "static shared memory");
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -124,10 +126,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait0() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait1() {
@@ -172,26 +170,26 @@ __device__ int warp_lower_bound(const long long* __restrict__ keys, long long ta
   return lo;
 }
 
-// Gathers the block's 32 sorted rows through perm, all of D, into zr;
-// zeros past N and past D.
-__device__ __forceinline__ void stage_rows(float* zr, int lda, const float* __restrict__ z,
-                                           const long long* __restrict__ perm, int N, int D,
-                                           int r0) {
-  const int width = lda - 4;
+// Stages D [k0, k0 + KC) of the sorted rows [first, first + NR) into dst
+// (stride LDS); zeros past N and past D.
+template <int NR>
+__device__ __forceinline__ void stage_chunk(float* dst, const float* __restrict__ z,
+                                            const long long* __restrict__ perm, int N, int D,
+                                            int first, int k0) {
   if ((D & 3) == 0) {
-    const int quads = width / 4;
-    for (int idx = threadIdx.x; idx < ROWS * quads; idx += THREADS) {
-      const int r = idx / quads, k = 4 * (idx % quads);
-      const int i = r0 + r;
-      const bool ok = i < N && k < D;
-      cp_async16(zr + r * lda + k, ok ? z + (size_t)perm[i] * D + k : z, ok);
+    constexpr int QUADS = KC / 4;
+    for (int idx = threadIdx.x; idx < NR * QUADS; idx += THREADS) {
+      const int r = idx / QUADS, q = idx % QUADS;
+      const int j = first + r, k = k0 + 4 * q;
+      const bool ok = j < N && k < D;
+      cp_async16(dst + r * LDS + 4 * q, ok ? z + (size_t)perm[j] * D + k : z, ok);
     }
   } else {
-    for (int idx = threadIdx.x; idx < ROWS * width; idx += THREADS) {
-      const int r = idx / width, k = idx % width;
-      const int i = r0 + r;
-      const bool ok = i < N && k < D;
-      cp_async4(zr + r * lda + k, ok ? z + (size_t)perm[i] * D + k : z, ok);
+    for (int idx = threadIdx.x; idx < NR * KC; idx += THREADS) {
+      const int r = idx / KC, kk = idx % KC;
+      const int j = first + r, k = k0 + kk;
+      const bool ok = j < N && k < D;
+      cp_async4(dst + r * LDS + kk, ok ? z + (size_t)perm[j] * D + k : z, ok);
     }
   }
 }
@@ -204,23 +202,7 @@ __device__ __forceinline__ void stage_cols(Shared& sm, int buf, int par, bool ke
                                            const long long* __restrict__ perm,
                                            const long long* __restrict__ keys, int N, int D,
                                            int c0, int k0) {
-  float* dst = sm.zc[buf];
-  if ((D & 3) == 0) {
-    constexpr int QUADS = KC / 4;
-    for (int idx = threadIdx.x; idx < COLS * QUADS; idx += THREADS) {
-      const int r = idx / QUADS, q = idx % QUADS;
-      const int j = c0 + r, k = k0 + 4 * q;
-      const bool ok = j < N && k < D;
-      cp_async16(dst + r * LDS + 4 * q, ok ? z + (size_t)perm[j] * D + k : z, ok);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < COLS * KC; idx += THREADS) {
-      const int r = idx / KC, kk = idx % KC;
-      const int j = c0 + r, k = k0 + kk;
-      const bool ok = j < N && k < D;
-      cp_async4(dst + r * LDS + kk, ok ? z + (size_t)perm[j] * D + k : z, ok);
-    }
-  }
+  stage_chunk<COLS>(sm.zc[buf], z, perm, N, D, c0, k0);
   if (keys_too && threadIdx.x < COLS) {
     const int j = c0 + threadIdx.x;
     cp_async8(&sm.ckey[par][threadIdx.x], j < N ? keys + j : keys, j < N);
@@ -279,10 +261,7 @@ pos_sweep_kernel(const float* __restrict__ z, const long long* __restrict__ perm
                  const long long* __restrict__ keys, const float* __restrict__ m_in,
                  const float* __restrict__ n_in, const float* __restrict__ s_in, int N, int D,
                  float inv_temp, float* __restrict__ part) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Shared& sm = *reinterpret_cast<Shared*>(smem_raw);
-  float* zr = reinterpret_cast<float*>(smem_raw + ROWS_OFFSET);
-  const int lda = row_stride(D);
+  __shared__ __align__(16) Shared sm;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int sp = blockIdx.x % SPLIT;
   const int r0 = (blockIdx.x / SPLIT) * ROWS;
@@ -295,7 +274,7 @@ pos_sweep_kernel(const float* __restrict__ z, const long long* __restrict__ perm
   if (valid_rows == 0u) return;
   const int n_valid = __popc(valid_rows);
 
-  // 2. the column range, the rows and their stats
+  // 2. the column range and the rows' stats
   if (warp == 0) {
     const long long first = __shfl_sync(0xffffffffu, k_lane, 0);
     const int b = warp_lower_bound(keys, first, 0, r0);
@@ -312,9 +291,6 @@ pos_sweep_kernel(const float* __restrict__ z, const long long* __restrict__ perm
     sm.rrn[lane] = in ? 1.f / n_in[o] : 0.f;
     sm.rs[lane] = in ? s_in[o] : 0.f;
   }
-  stage_rows(zr, lda, z, perm, N, D, r0);
-  cp_async_commit();
-  cp_async_wait0();
   __syncthreads();
 
   const int wm = warp & 1, wn = warp >> 1;
@@ -335,7 +311,8 @@ pos_sweep_kernel(const float* __restrict__ z, const long long* __restrict__ perm
   }
 
   // 3. the block's column tiles: begin + (sp + SPLIT * u) * COLS for u = 0,
-  //    1, ...; each in nchunks chunks of D (items), staged one item ahead
+  //    1, ...; each in nchunks chunks of D (items), its columns and the
+  //    block's rows staged one item ahead
   const int begin = sm.range[0], end = sm.range[1];
   const int ntiles = (end - begin + COLS - 1) / COLS;
   const int my_tiles = ntiles > sp ? (ntiles - sp + SPLIT - 1) / SPLIT : 0;
@@ -345,7 +322,10 @@ pos_sweep_kernel(const float* __restrict__ z, const long long* __restrict__ perm
   int c[2] = {0, 0};
   float acc[NT][4];
 
-  if (items > 0) stage_cols(sm, 0, 0, true, z, perm, keys, N, D, begin + sp * COLS, 0);
+  if (items > 0) {
+    stage_cols(sm, 0, 0, true, z, perm, keys, N, D, begin + sp * COLS, 0);
+    stage_chunk<ROWS>(sm.zr[0], z, perm, N, D, r0, 0);
+  }
   cp_async_commit();
   for (int it = 0; it < items; ++it) {
     const int u = it / nchunks, ch = it % nchunks, buf = it & 1;
@@ -354,6 +334,7 @@ pos_sweep_kernel(const float* __restrict__ z, const long long* __restrict__ perm
       const int u1 = (it + 1) / nchunks, ch1 = (it + 1) % nchunks;
       stage_cols(sm, buf ^ 1, u1 & 1, ch1 == 0, z, perm, keys, N, D,
                  begin + (sp + SPLIT * u1) * COLS, ch1 * KC);
+      stage_chunk<ROWS>(sm.zr[buf ^ 1], z, perm, N, D, r0, ch1 * KC);
     }
     cp_async_commit();
     cp_async_wait1();
@@ -365,7 +346,7 @@ pos_sweep_kernel(const float* __restrict__ z, const long long* __restrict__ perm
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
     }
-    const float* A = zr + wm * WARP_M * lda + ch * KC;
+    const float* A = sm.zr[buf] + wm * WARP_M * LDS;
     const float* B = sm.zc[buf] + wn * WARP_N * LDS;
     const int ksteps = min(KC / 8, (D - ch * KC + 7) / 8);
 #pragma unroll
@@ -379,12 +360,12 @@ pos_sweep_kernel(const float* __restrict__ z, const long long* __restrict__ perm
           split_tf32(bp[0], bh[ni][0], bl[ni][0]);
           split_tf32(bp[4], bh[ni][1], bl[ni][1]);
         }
-        const float* ap = A + g * lda + k;
+        const float* ap = A + g * LDS + k;
         uint32_t ah[4], al[4];
         split_tf32(ap[0], ah[0], al[0]);
-        split_tf32(ap[8 * lda], ah[1], al[1]);
+        split_tf32(ap[8 * LDS], ah[1], al[1]);
         split_tf32(ap[4], ah[2], al[2]);
-        split_tf32(ap[8 * lda + 4], ah[3], al[3]);
+        split_tf32(ap[8 * LDS + 4], ah[3], al[3]);
 #pragma unroll
         for (int ni = 0; ni < NT; ++ni) {
           mma_tf32(acc[ni], al, bh[ni]);
@@ -485,19 +466,15 @@ int dcss_pos_sweep_layout(const void* labels, const void* valid, int N, void* ke
 int dcss_pos_sweep(const void* z, const void* perm, const void* keys, const void* m,
                    const void* n, const void* s, int N, int D, float inv_temp, void* scratch,
                    void* q, void* c, void* stream) {
-  if (N < 1 || D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
+  if (N < 1 || D < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t bytes = ROWS_OFFSET + sizeof(float) * ROWS * (size_t)row_stride(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      pos_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((N + ROWS - 1) / ROWS * SPLIT);
-  pos_sweep_kernel<<<blocks, THREADS, bytes, st>>>(
+  pos_sweep_kernel<<<blocks, THREADS, 0, st>>>(
       static_cast<const float*>(z), static_cast<const long long*>(perm),
       static_cast<const long long*>(keys), static_cast<const float*>(m),
       static_cast<const float*>(n), static_cast<const float*>(s), N, D, inv_temp,
       static_cast<float*>(scratch));
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_kernel<<<(unsigned)((N + REDUCE_THREADS - 1) / REDUCE_THREADS), REDUCE_THREADS, 0,
                   st>>>(static_cast<const float*>(scratch),

@@ -63,11 +63,74 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` whose float32 parameters are cast to the
+    input's dtype at the call."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias, self.stride,
+                                  self.padding, self.output_padding, self.groups,
+                                  self.dilation)
+
+
 def conv_kxk(in_features: int, features: int, k: int = 3, stride: int = 1,
-             bias: bool = False) -> Conv2d:
-    """k×k conv with torch ``padding=k//2``."""
-    return Conv2d(in_features, features, k, stride=stride, padding=k // 2,
-                  bias=bias)
+             bias: bool = False, dilation: int = 1) -> Conv2d:
+    """k×k conv with torch ``padding=dilation·(k//2)``."""
+    return Conv2d(in_features, features, k, stride=stride, padding=dilation * (k // 2),
+                  dilation=dilation, bias=bias)
+
+
+class SeparableConv(nn.Module):
+    """Depthwise k×k → pointwise 1×1 (JAX ``models/blocks.py:163``), under
+    the reference's names for the DeepLab heads' separable convs
+    (``AtrousSeparableConvolution``, ``network/_deeplab.py:92-116``):
+    ``body.0`` the depthwise conv, ``body.1`` the pointwise."""
+
+    def __init__(self, in_features: int, features: int, k: int = 3, stride: int = 1,
+                 dilation: int = 1, bias: bool = False):
+        super().__init__()
+        self.body = nn.Sequential(
+            Conv2d(in_features, in_features, k, stride=stride, padding=dilation * (k // 2),
+                   dilation=dilation, groups=in_features, bias=bias),
+            Conv2d(in_features, features, 1, bias=bias))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.body(x)
+
+
+class Dropout(nn.Module):
+    """Dropout at rate ``p`` in training, as flax's ``nn.Dropout``: an
+    element is kept with probability 1 − p and scaled by 1/(1 − p). The
+    keep mask is drawn in NHWC order from ``generator``, which the train
+    step sets (``set_dropout_generator``) where JAX passes its dropout key;
+    ``spatial`` draws one a (sample, channel), JAX's ``broadcast_dims=(1,
+    2)`` (torch ``Dropout2d``)."""
+
+    def __init__(self, p: float, spatial: bool = False):
+        super().__init__()
+        self.p, self.spatial = p, spatial
+        self.generator = None
+
+    def keep_mask(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, C, H, W)-broadcastable bool mask, drawn as (B, H, W, C) or
+        (B, 1, 1, C) uniforms ≥ p."""
+        b, c, h, w = x.shape
+        shape = (b, 1, 1, c) if self.spatial else (b, h, w, c)
+        u = torch.rand(shape, generator=self.generator, device=x.device)
+        return (u >= self.p).permute(0, 3, 1, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return x
+        return torch.where(self.keep_mask(x), x / (1.0 - self.p), 0.0)
+
+
+def set_dropout_generator(model: nn.Module, generator) -> None:
+    """Every ``Dropout`` of ``model`` draws its masks from ``generator``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
@@ -144,7 +207,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     # std of a unit normal truncated to ±2, which variance_scaling divides out
     trunc_std = 0.87962566103423978
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
             std = math.sqrt(2.0 / fan_out) / trunc_std
             with torch.no_grad():

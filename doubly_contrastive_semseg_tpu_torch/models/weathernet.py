@@ -21,13 +21,22 @@ from .resnet_pyramid import resnet18_pyramid, resnet34_pyramid
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def _nhwc(x: torch.Tensor) -> torch.Tensor:
+def nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def two_view_pool(fine_feat: torch.Tensor) -> torch.Tensor:
+    """(2B, h, w, D) → (B, 2, D): each view's global average pool, the
+    projection head's input (reference ``utils/loss.py:114-120``)."""
+    pooled = fine_feat.mean(dim=(1, 2))
+    bsz = pooled.shape[0] // 2
+    return torch.stack([pooled[:bsz], pooled[bsz:]], dim=1)
+
+
 class WeatherClassifier(nn.Module):
-    """Global average pool → Linear(128 → weather_num), a monitoring head
-    (reference ``network/classifier.py:6-32``). Takes NHWC features."""
+    """Global average pool → Linear(C → weather_num), a monitoring head
+    (reference ``network/classifier.py:6-32``); C is the model's feature
+    width (128, or the DeepLab backbone's). Takes NHWC features."""
 
     def __init__(self, in_features: int = 128, weather_num: int = 4):
         super().__init__()
@@ -41,8 +50,9 @@ class WeatherClassifier(nn.Module):
 
 class ProjectionHead(nn.Module):
     """Linear → ReLU → Linear projection for image-level contrast (reference
-    ``utils/loss.py:104-109``), ``DCSSModel.projection`` of a model built
-    for a SupCon criterion; the eval path does not use it."""
+    ``utils/loss.py:104-109``; dim_in 128 for SwiftNet and ENet, the
+    backbone's width for DeepLab), the ``projection`` of a model built for a
+    SupCon criterion; the eval path does not use it."""
 
     def __init__(self, in_features: int = 128, feat_dim: int = 128):
         super().__init__()
@@ -86,15 +96,15 @@ class WeatherNet(nn.Module):
         return {
             "seg": resize_bilinear(seg_beforeup, image_hw(image)),
             "seg_beforeup": seg_beforeup,
-            "fine_feat": _nhwc(feat),
-            "fine_feat0": _nhwc(feat0),
-            "skips_0": _nhwc(additional["skips_0"]),
+            "fine_feat": nhwc(feat),
+            "fine_feat0": nhwc(feat0),
+            "skips_0": nhwc(additional["skips_0"]),
         }
 
     def seg_logits(self, feat: torch.Tensor) -> torch.Tensor:
         """The seg head's (B, h, w, classes) float32 logits of the decoder
         features (B, 128, h, w)."""
-        return _nhwc(self.segmentation(feat)).float()
+        return nhwc(self.segmentation(feat)).float()
 
 
 class DCSSModel(nn.Module):
@@ -126,29 +136,36 @@ class DCSSModel(nn.Module):
             if self.projection is None:
                 raise ValueError("DCSSModel: return_supcon_feature needs a model "
                                  "built with projection=True")
-            pooled = out["fine_feat"].mean(dim=(1, 2))              # (2B, 128)
-            bsz = pooled.shape[0] // 2
-            out["supcon_proj"] = self.projection(
-                torch.stack([pooled[:bsz], pooled[bsz:]], dim=1))  # (B, 2, 128)
+            out["supcon_proj"] = self.projection(two_view_pool(out["fine_feat"]))
         return out
 
 
-def build_model(cfg, device="cuda", seed: int = 0) -> DCSSModel:
-    """Model factory (reference ``utils/init_trainer.py:97-111``) for the
-    ported backbones, with weights drawn from ``torch.Generator`` seeded by
-    ``seed``, in eval mode. A SupCon criterion (``cfg.use_supcon``) adds
+def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
+    """Model factory (reference ``utils/init_trainer.py:97-111``), routed as
+    JAX's: ``--deeplab`` or a ``deeplabv3*`` name → ``DeepLabDCSS``,
+    ``enet`` → ``ENetDCSS``, ``resnet18`` / ``resnet34`` → ``DCSSModel``.
+    Weights are drawn from ``torch.Generator`` seeded by ``seed``; the model
+    is returned in eval mode. A SupCon criterion (``cfg.use_supcon``) adds
     the projection head. Runs on the card unless ``device`` asks for the
-    CPU."""
+    CPU. The names not ported yet raise ``NotImplementedError``
+    (``config.check_ported``)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: CUDA is not available; pass "
                            "device='cpu' to run on the CPU")
-    if cfg.model not in ("resnet18", "resnet34"):
+    dtype = _DTYPES[cfg.compute_dtype]
+    if cfg.deeplab or cfg.model.startswith("deeplabv3"):
+        from .deeplab import build_deeplab_dcss
+        model = build_deeplab_dcss(cfg, dtype)
+    elif cfg.model == "enet":
+        from .enet import build_enet_dcss
+        model = build_enet_dcss(cfg, dtype)
+    elif cfg.model in ("resnet18", "resnet34"):
+        model = DCSSModel(backbone=cfg.model, num_classes=cfg.num_classes,
+                          weather_num=cfg.weather_num, fuse_stem=cfg.fuse_stem,
+                          efficient=cfg.efficient, projection=cfg.use_supcon, dtype=dtype)
+    else:
         raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet (see ROADMAP.md)")
-    model = DCSSModel(backbone=cfg.model, num_classes=cfg.num_classes,
-                      weather_num=cfg.weather_num, fuse_stem=cfg.fuse_stem,
-                      efficient=cfg.efficient, projection=cfg.use_supcon,
-                      dtype=_DTYPES[cfg.compute_dtype])
+            f"model {cfg.model!r} is not ported yet (see ROADMAP.md §1 item 4)")
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device=device, memory_format=torch.channels_last).eval()

@@ -13,8 +13,10 @@ partials a reduce launch adds in a fixed order. The first port
 of both, ``csrc/contrastive.cu`` (every logit recomputed on CUDA cores in
 each sweep), stays reachable only through ``_three_sweep_row_stats`` and
 ``_dense_pos_sweep``, the yardsticks the tools time the two kernels
-against. Each source's note names its bound (operations) and its design. A
-tensor on the CPU takes the plain versions,
+against. Each source's note names its bound (operations) and its design.
+K3 and K4 take any D ≥ 1, as the Pallas kernels do (the DeepLab family's
+pixel contrast runs at D = 320 to 2048); ``csrc/contrastive.cu`` keeps its
+D ≤ 256. A tensor on the CPU takes the plain versions,
 ``contrastive_row_stats_reference`` and ``pixel_contrast_sweep_reference``
 (dense N×N, same masks and clamps); a CUDA tensor launches the kernel or
 raises. ``row_stats_tiled`` and ``pos_sweep_segmented`` repeat the new
@@ -48,7 +50,7 @@ import torch
 from . import _build
 
 NEG_BIG = -1e30
-MAX_D = 256
+DENSE_MAX_D = 256  # csrc/contrastive.cu's limit; K3 and K4 take any D
 BWD_CHUNK = 256  # rows a backward slab holds; live memory ≈ a few × chunk·N f32
 
 ROW_TILE = 128   # rows and columns of a tile of csrc/row_stats.cu
@@ -107,18 +109,20 @@ def pixel_contrast_sweep_reference(z, labels, valid, m, n, s,
     return torch.where(pos, log_prob, 0.0).sum(dim=1), pos.sum(dim=1).float()
 
 
-def _kernel_inputs(z, labels, valid):
-    z = _checked_z(z, labels, valid)
+def _kernel_inputs(z, labels, valid, max_d: Optional[int] = None):
+    z = _checked_z(z, labels, valid, max_d)
     return (z, labels.detach().to(torch.int32).contiguous(),
             valid.detach().to(torch.int32).contiguous())
 
 
-def _checked_z(z, labels, valid):
+def _checked_z(z, labels, valid, max_d: Optional[int] = None):
     """z, contiguous and 16-byte aligned, after checking the shapes, device
-    and dtype every kernel of this module takes."""
-    if z.dim() != 2 or not 1 <= z.shape[1] <= MAX_D or z.shape[0] < 1:
-        raise ValueError(f"contrastive: z must be (N >= 1, D <= {MAX_D}), "
-                         f"got {tuple(z.shape)}")
+    and dtype every kernel of this module takes (and D ≤ ``max_d`` where a
+    kernel has a limit)."""
+    if z.dim() != 2 or z.shape[0] < 1 or z.shape[1] < 1:
+        raise ValueError(f"contrastive: z must be (N >= 1, D >= 1), got {tuple(z.shape)}")
+    if max_d is not None and z.shape[1] > max_d:
+        raise ValueError(f"contrastive: this kernel takes D <= {max_d}, got {z.shape[1]}")
     if labels.shape != (z.shape[0],) or valid.shape != (z.shape[0],):
         raise ValueError("contrastive: labels and valid must be (N,)")
     if z.device.type != "cuda":
@@ -192,7 +196,7 @@ def _three_sweep_row_stats(z, labels, valid, temperature: float = 0.07,
     """K3's first port, sweeps 0–3 of ``csrc/contrastive.cu`` (each
     recomputes every logit on CUDA cores), on a CUDA tensor: the yardstick
     the tools time the two-pass kernel against. No public path calls it."""
-    z, labels, valid = _kernel_inputs(z, labels, valid)
+    z, labels, valid = _kernel_inputs(z, labels, valid, DENSE_MAX_D)
     lib = _lib()
     (m,) = _sweep(lib, _SWEEP_MAX, z, labels, valid, temperature,
                   (None, None, None), 1, "three-sweep row stats (max)")
@@ -289,7 +293,7 @@ def _dense_pos_sweep(z, labels, valid, m, n, s, temperature: float = 0.07):
     """K4's first port, sweep 4 of ``csrc/contrastive.cu`` (all N² logits on
     CUDA cores), on a CUDA tensor: the yardstick the tools time the
     segmented kernel against. No public path calls it."""
-    z, labels, valid = _kernel_inputs(z, labels, valid)
+    z, labels, valid = _kernel_inputs(z, labels, valid, DENSE_MAX_D)
     return _sweep(_lib(), _SWEEP_POS, z, labels, valid, temperature, _pos_stats(z, m, n, s),
                   2, "dense positive sweep")
 

@@ -15,11 +15,22 @@ import torch
 import torch.nn.functional as F
 
 
+# torch's channels_last bilinear kernel takes fewer output elements than this
+_INT_MAX = 2 ** 31 - 1
+
+
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """(B, H, W, C) → (B, size[0], size[1], C), bilinear with half-pixel
-    centres (torch ``align_corners=False``)."""
+    centres (torch ``align_corners=False``). An output of 2³¹ elements or
+    more (DeepLab's 2048-channel ``fine_feat0`` of a 2048×1024 batch of 8)
+    is resized a few samples at a time."""
     if tuple(x.shape[1:3]) == tuple(size):
         return x
+    per_sample = size[0] * size[1] * x.shape[3]
+    step = max(1, _INT_MAX // max(per_sample, 1))
+    if x.shape[0] > step:
+        return torch.cat([resize_bilinear(x[i:i + step], size)
+                          for i in range(0, x.shape[0], step)])
     y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(size), mode="bilinear",
                       align_corners=False)
     return y.permute(0, 2, 3, 1)

@@ -25,10 +25,11 @@ dense sweep it replaced and the plain version, with the bounds and the
 executed products; K4 again on the dense step's anchor grid (N = 8208,
 labels i mod 19). Last, times the sweep kernel as built and with pieces
 of its source replaced (``SWEEP_VARIANTS``: no epilogue, one product, no
-products, no column staging, the prologue only), compiled into a
-temporary directory. ``chip_smoke.py`` phase 6 calls
-``check_row_stats``, ``check_pos_sweep``, ``time_routes`` and
-``time_anchor_grid``.
+products, no staging, the prologue only), compiled into a
+temporary directory. ``wide_d`` holds and times both at the
+DeepLab family's widths (D = 320 to 2048) on the anchor grid.
+``chip_smoke.py`` phase 6 calls ``check_row_stats``, ``check_pos_sweep``,
+``time_routes`` and ``time_anchor_grid``, and phase 18b ``wide_d``.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ CHECK_SHAPES = [(8192, D_FEAT), (8200, D_FEAT), (300, D_FEAT),   # chip_smoke's 
 TIME_NS = (8192, 16384)
 LAUNCHES = 4   # pass A, its reduce, pass B, its reduce
 ANCHOR_N = 216 * 19 * 2   # the dense-contrast step's rows: (image, class) anchors, two views
+DEEPLAB_DS = (320, 480, 720, 2048)   # MobileNetV2, HRNetV2-W32, -W48, ResNet and Xception
 # K4's gates: (N, D, labels); chip_smoke's N = 8192, 8200, 300, the anchor
 # grid and one label, then D % 8 != 0, N = 1, no valid row, negative labels
 # at D max, a label with one valid row
@@ -76,10 +78,10 @@ def contrastive_inputs(gen, dev, n, n_labels, d=D_FEAT):
     return z, labels, valid
 
 
-def stat_errors(got, ref, valid):
+def stat_errors(got, ref, valid, scale=1.0):
     """Max abs error of each of (p, c, s, m, n) and whether each is within
-    its tolerance: 1e-5·max|ref| for p, m (valid rows; invalid rows must be
-    -1e30 exactly), n; 1e-5 relative for s; exact for c."""
+    its tolerance: 1e-5·scale·max|ref| for p, m (valid rows; invalid rows
+    must be -1e30 exactly), n; 1e-5·scale relative for s; exact for c."""
     errs, ok = {}, True
     for name, g, r in zip("pcsmn", got, ref):
         if name == "m":
@@ -93,9 +95,9 @@ def stat_errors(got, ref, valid):
         if name == "c":
             ok &= errs[name] == 0.0
         elif name == "s":
-            ok &= bool((err <= 1e-5 * r.abs() + 1e-30).all())
+            ok &= bool((err <= 1e-5 * scale * r.abs() + 1e-30).all())
         else:
-            ok &= errs[name] <= 1e-5 * r.abs().max().item()
+            ok &= errs[name] <= 1e-5 * scale * r.abs().max().item()
     return errs, ok
 
 
@@ -164,9 +166,9 @@ def expected_counts(labels, valid):
     return c
 
 
-def _q_err(got, want):
-    """(max abs error, tolerance 1e-5·max|want|) of q."""
-    return (got - want).abs().max().item(), 1e-5 * want.abs().max().item()
+def _q_err(got, want, scale=1.0):
+    """(max abs error, tolerance 1e-5·scale·max|want|) of q."""
+    return (got - want).abs().max().item(), 1e-5 * scale * want.abs().max().item()
 
 
 def check_pos_sweep(gen, dev, log=print) -> dict:
@@ -369,6 +371,71 @@ def time_anchor_grid(gen, dev, log=print) -> dict:
     return time_pos_sweep(z, labels, valid, m, nrm, s, log, " anchor grid")
 
 
+def wide_d(gen, dev, log=print, n=ANCHOR_N, ds=DEEPLAB_DS) -> dict:
+    """K3 and K4 at the DeepLab family's feature widths ``ds`` on the dense
+    step's anchor grid (N = ``ANCHOR_N``, ``neg_mode``): each held to its
+    plain version (``stat_errors``' and ``_q_err``'s tolerances, c exact),
+    K3's ``LAUNCHES`` and K4's one layout and one sweep a call, then timed
+    in turns beside the plain versions, with the bounds (K3 N(N+1)·D f32
+    flops, K4 2·Σc·D). The tolerances, set at D = 128, grow by √(D/128):
+    a logit sums D products in f32, in another order in the kernel (its
+    TF32 split, tile by tile) than in the plain version, and the rounding
+    of such sums grows as √D. Returns {D:
+    {"k3_ms", "k3_plain_ms", "k3_bound_ms", "k3_bound_by", "k3_err", "k4_ms",
+    "k4_plain_ms", "k4_bound_ms", "k4_bound_by", "k4_err"}}."""
+    out = {}
+    layout_fn, sweep_fn = contrastive.pos_sweep_layout, contrastive.pixel_contrast_pos_sweep
+    for d in ds:
+        z, labels, valid, _ = pos_sweep_inputs(gen, dev, n, d, "anchor grid")
+        before = (contrastive.contrastive_row_stats.launches, layout_fn.launches,
+                  sweep_fn.launches)
+        stats = contrastive.contrastive_row_stats(z, labels, valid, neg_mode=True)
+        _, _, s, m, nrm = stats
+        q, c = sweep_fn(z, labels, valid, m, nrm, s)
+        launches = (contrastive.contrastive_row_stats.launches - before[0],
+                    layout_fn.launches - before[1], sweep_fn.launches - before[2])
+        ref = contrastive.contrastive_row_stats_reference(z, labels, valid, neg_mode=True)
+        q_ref, c_ref = contrastive.pixel_contrast_sweep_reference(z, labels, valid, m, nrm, s)
+        torch.cuda.synchronize()
+        scale = (d / D_FEAT) ** 0.5
+        errs, ok3 = stat_errors(stats, ref, valid, scale)
+        q_err, q_tol = _q_err(q, q_ref, scale)
+        log(f"  D={d}, N={n} anchor grid: row stats max abs err "
+            + ", ".join(f"{k} {v:.2e} (of max {(r[valid] if k == 'm' else r).abs().max():.3g})"
+                        for (k, v), r in zip(errs.items(), ref))
+            + f", within {1e-5 * scale:.2e} of the max (s: of each) {ok3}; positive sweep q "
+            f"{q_err:.2e} (tolerance {q_tol:.2e}), c exact "
+            f"{torch.equal(c, c_ref)}; launches (K3, K4 layout, K4 sweep) {launches}")
+        if not (ok3 and q_err <= q_tol and torch.equal(c, c_ref)):
+            raise RuntimeError(f"K3 or K4 disagrees with its plain version at D={d}")
+        if launches != (LAUNCHES, 1, 1):
+            raise RuntimeError(f"K3 and K4 made {launches} launches at D={d}")
+        calls = {
+            "k3": lambda: contrastive.contrastive_row_stats(z, labels, valid, neg_mode=True),
+            "k3_plain": lambda: contrastive.contrastive_row_stats_reference(z, labels, valid,
+                                                                            neg_mode=True),
+            "k4": lambda: sweep_fn(z, labels, valid, m, nrm, s),
+            "k4_plain": lambda: contrastive.pixel_contrast_sweep_reference(z, labels, valid,
+                                                                           m, nrm, s)}
+        ms = {k: [] for k in calls}
+        for k in ("k3_plain", "k3", "k4_plain", "k4", "k4", "k4_plain", "k3", "k3_plain"):
+            ms[k].append(cuda_ms(calls[k], iters=5))
+        t = {k: sum(v) / len(v) for k, v in ms.items()}
+        k3_bound, k3_by = _bound(float(n) * (n + 1) * d, _nbytes(z, labels, valid, *stats))
+        needed, _ = pos_sweep_gflop(labels, valid, d)
+        k4_bound, k4_by = _bound(needed * 1e9, _nbytes(z, labels, valid, m, nrm, s, q, c))
+        log(f"  D={d}: K3 {t['k3']:.4f} ms (plain {t['k3_plain']:.4f}; bound {k3_bound:.4f} "
+            f"ms, {k3_by}; {t['k3'] / k3_bound:.1f}x), K4 {t['k4']:.4f} ms (plain "
+            f"{t['k4_plain']:.4f}; bound {k4_bound:.5f} ms, {k4_by}; "
+            f"{t['k4'] / k4_bound:.1f}x)")
+        out[d] = {"k3_ms": t["k3"], "k3_plain_ms": t["k3_plain"], "k3_bound_ms": k3_bound,
+                  "k3_bound_by": k3_by, "k3_err": max(errs.values()), "k4_ms": t["k4"],
+                  "k4_plain_ms": t["k4_plain"], "k4_bound_ms": k4_bound, "k4_bound_by": k4_by,
+                  "k4_err": q_err}
+        del z, labels, valid, stats, ref
+    return out
+
+
 _EPILOGUE = "    if (ch == nchunks - 1) {  // the tile's positives"
 # the sweep kernel of csrc/pos_sweep.cu with one piece of its text replaced;
 # each but "as built" drops work and gives wrong output
@@ -379,8 +446,8 @@ SWEEP_VARIANTS = {
     "one product (hi.hi)": [("          mma_tf32(acc[ni], al, bh[ni]);\n"
                              "          mma_tf32(acc[ni], ah, bl[ni]);\n", "")],
     "no products": [("      if (ks < ksteps) {", "      if (false) {")],
-    "no column staging": [("    if (it + 1 < items) {", "    if (false) {"),
-                          ("  if (items > 0) stage_cols", "  if (false) stage_cols")],
+    "no staging": [("    if (it + 1 < items) {", "    if (false) {"),
+                   ("  if (items > 0) {", "  if (false) {")],
     "prologue only": [("  const int items = my_tiles * nchunks;",
                        "  const int items = 0 * my_tiles * nchunks;")],
 }
@@ -456,9 +523,10 @@ def main() -> int:
     k4 = check_pos_sweep(gen, dev, log)
     t = time_routes(gen, dev, log)
     grid = time_anchor_grid(gen, dev, log)
+    wide = wide_d(gen, dev, log)
     ablations = sweep_ablations(gen, dev, log)
     print(json.dumps({"card": card, "max_abs_err": err, "k4": k4, "times": t,
-                      "anchor_grid": grid, "sweep_ablations": ablations}))
+                      "anchor_grid": grid, "wide_d": wide, "sweep_ablations": ablations}))
     return 0
 
 

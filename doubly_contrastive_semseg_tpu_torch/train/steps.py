@@ -19,6 +19,7 @@ import torch
 from ..losses import compute_total_loss, weather_classifier_metrics
 from ..metrics.confusion import (confusion_matrix, confusion_matrix_per_weather,
                                  weather_confusion_matrix)
+from ..models.blocks import set_dropout_generator
 from .optimizer import set_lr
 from .state import TrainState
 
@@ -42,9 +43,13 @@ def compute_loss(model, cfg, batch: Dict, generator: Optional[torch.Generator],
                  use_kernel: Optional[bool] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """The forward of one train step in the model's current mode: (total
-    loss, components, model outputs). ``use_kernel`` forces the contrastive
-    losses' route (None: by size, as in JAX)."""
+    loss, components, model outputs). ``generator`` draws, in order, the
+    dropout masks of the forward (ASPP's, ENet's; JAX's ``rng_drop``) and
+    the pixel-contrast anchors; the trainer keys it by the update count.
+    ``use_kernel`` forces the contrastive losses' route (None: by size, as
+    in JAX)."""
     batch = ingest_batch(batch)
+    set_dropout_generator(model, generator)
     outputs = model(batch["left"], return_supcon_feature=cfg.use_supcon)
     total, comps = compute_total_loss(cfg, outputs, batch, batch["class_weight"],
                                       generator, use_kernel=use_kernel)

@@ -7,9 +7,11 @@ The port keeps the reference's ``state_dict`` names, so the conversion is a
 renaming: a torchvision ResNet's trunk lands under
 ``net.feature_extractor.`` with its one ``bn1`` fanned out to the three
 pyramid levels' ``bn1_{0,1,2}`` (reference ``resnet_pyramid.py:388-393``);
-a reference trainer checkpoint's ``model_state`` (WeatherNet) lands under
-``net.``, its ``supcon_projection`` on ``projection`` and its
-``weather_clf`` on ``weather_clf``. Loading is partial, by name and shape,
+a reference trainer checkpoint's ``model_state`` lands, routed as JAX
+routes it (``torch_convert.py:797-803``), on the model's root for the
+DeepLab family (``backbone.*``, ``classifier.*``), under ``net.`` for ENet
+(``initial_block.*``, ...) and for WeatherNet; its ``supcon_projection`` on
+``projection`` and its ``weather_clf`` on ``weather_clf``. Loading is partial, by name and shape,
 like ``load_state_dict(strict=False)``: a tensor the model lacks is
 skipped, one of another shape is skipped with a warning.
 """
@@ -22,7 +24,6 @@ from typing import Dict
 import torch
 
 FE = "net.feature_extractor."
-_MODEL_FAMILIES = (("backbone.", "a deeplab checkpoint"), ("initial_block.", "an ENet checkpoint"))
 
 
 def _tensors(sd: Dict) -> Dict[str, torch.Tensor]:
@@ -67,17 +68,19 @@ def convert_reference_weathernet(model_state: Dict) -> Dict[str, torch.Tensor]:
 
 
 def convert_blob(blob: Dict) -> Dict[str, torch.Tensor]:
-    """A loaded ``.pth``: a reference trainer checkpoint (``model_state``,
-    with ``supcon_projection`` and ``weather_clf`` beside it where the run
-    had them) or a torchvision ResNet ``state_dict``."""
+    """A loaded ``.pth``: a reference trainer checkpoint (``model_state`` of
+    WeatherNet, DeepLab or ENet, with ``supcon_projection`` and
+    ``weather_clf`` beside it where the run had them) or a torchvision
+    ResNet ``state_dict``."""
     if not (isinstance(blob, dict) and "model_state" in blob):
         return convert_torchvision_resnet(blob)
     sd = blob["model_state"]
-    for prefix, what in _MODEL_FAMILIES:
-        if any(k.startswith(prefix) for k in sd):
-            raise NotImplementedError(f"{what}: that model family is not ported yet "
-                                      "(ROADMAP.md §1 item 4)")
-    out = convert_reference_weathernet(sd)
+    if any(k.startswith("backbone.") for k in sd):         # the DeepLab family
+        out = _tensors(sd)
+    elif any(k.startswith("initial_block.") for k in sd):  # ENet
+        out = {"net." + k: v for k, v in _tensors(sd).items()}
+    else:
+        out = convert_reference_weathernet(sd)
     if "supcon_projection" in blob:
         ps = blob["supcon_projection"]      # Sequential(Linear, ReLU, Linear)
         for i, fc in (("0", "fc1"), ("2", "fc2")):

@@ -23,6 +23,8 @@ from doubly_contrastive_semseg_tpu import config as jax_config  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch import config as port_config  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch import inference as port_inference  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch import main as port_main  # noqa: E402
+from doubly_contrastive_semseg_tpu_torch.config import (  # noqa: E402
+    MODELS, PORTED_MODELS, check_ported, parse_args)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_ONLY = {"filelist_root", "device"}
@@ -100,9 +102,12 @@ NOT_PORTED = {
     "kitti_2015": (["--dataset", "kitti_2015"], "§1 item 5"),
     "sceneflow": (["--dataset", "sceneflow"], "§1 item 5"),
     "synthetic disparity": (["--dataset", "synthetic", "--transfer_disparity"], "§1 item 5"),
-    "deeplab": (["--model", "deeplabv3plus_resnet101"], "§1 item 4"),
-    "enet": (["--model", "enet"], "§1 item 4"),
     "single": (["--model", "resnet18_single"], "§1 item 4"),
+    "hourglass": (["--model", "resnet18_hourglass"], "§1 item 4"),
+    "rgbd": (["--model", "resnet18_rgbd"], "§1 item 4"),
+    "back": (["--model", "resnet18_back"], "§1 item 4"),
+    "mobilenetv2": (["--model", "mobilenetv2"], "§1 item 4"),
+    "efficientnetb0": (["--model", "efficientnetb0"], "§1 item 4"),
     "tsne": (["--tsne"], "§1 item 6"),
     "grain": (["--loader", "grain"], "§1 item 2"),
     "num_devices": (["--num_devices", "2"], "§1 item 7"),
@@ -114,6 +119,20 @@ def test_unported_routes_raise_naming_their_item(argv, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         port_main.main([*argv, "--device", "cpu", "--run_root", str(tmp_path)])
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("model", [m for m in MODELS
+                                   if m == "enet" or m.startswith("deeplabv3")])
+def test_check_ported_accepts_the_deeplab_family_and_enet(model):
+    """Every DeepLab name of JAX's ``MODELS`` and ``enet`` pass
+    ``check_ported``, with ``--deeplab`` too for the DeepLab names, and
+    ``--output_stride`` / ``--separable_conv`` reach the config."""
+    argv = ["--model", model, "--output_stride", "8", "--separable_conv"]
+    if model != "enet":
+        argv.append("--deeplab")
+    cfg = parse_args(argv)
+    check_ported(cfg)
+    assert model in PORTED_MODELS and cfg.output_stride == 8 and cfg.separable_conv
 
 
 def test_clis_need_the_card_or_device_cpu(tmp_path):

@@ -259,10 +259,15 @@ def test_split_tf32_products():
 
 
 def test_kernel_wrappers_refuse_bad_shapes():
-    z = torch.zeros(4, 300)
+    """K3 and K4 take any D >= 1; csrc/contrastive.cu, the tools' yardstick,
+    keeps D <= 256."""
     lab = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="D <= 256"):
-        cp._kernel_inputs(z, lab, lab.bool())
+        cp._kernel_inputs(torch.zeros(4, 300), lab, lab.bool(), cp.DENSE_MAX_D)
+    with pytest.raises(ValueError, match="D >= 1"):
+        cp._kernel_inputs(torch.zeros(4, 0), lab, lab.bool())
+    with pytest.raises(ValueError, match="device"):   # past the shape checks at D = 2048
+        cp._kernel_inputs(torch.zeros(4, 2048), lab, lab.bool())
 
 
 # ---- K4: the segmented positive sweep's arithmetic -------------------------
@@ -434,3 +439,28 @@ def test_pos_sweep_wrapper_takes_plain_version_on_cpu(rng):
     assert _launches() == before
     for g, w in zip(got, cp.pixel_contrast_sweep_reference(zt, lt, vt, m, nrm, s)):
         assert torch.equal(g, w)
+
+
+# ---- the DeepLab family's widths: any D, as the Pallas kernels take ----------
+
+@pytest.mark.parametrize("d", [330, 2048])
+@pytest.mark.parametrize("neg_mode", [False, True])
+def test_row_stats_tiled_wide_d_matches_reference_and_pallas(rng, d, neg_mode):
+    """K3's arithmetic at D = 2048 (ResNet and Xception features) and D = 330
+    (not a multiple of 4: the kernels' 4-byte staging) against the plain
+    version and the Pallas kernels, which pad D to a multiple of 128."""
+    z, labels, valid = _inputs(rng, 160, d, 4 if not neg_mode else 19)
+    zt, lt, vt = torch.from_numpy(z), torch.from_numpy(labels), torch.from_numpy(valid)
+    got = [t.numpy() for t in cp.row_stats_tiled(zt, lt, vt, neg_mode=neg_mode)]
+    _check_stats(got, [t.numpy() for t in cp.contrastive_row_stats_reference(
+        zt, lt, vt, neg_mode=neg_mode)], valid)
+    _check_stats(got, jcp.contrastive_row_stats(jnp.asarray(z), jnp.asarray(labels),
+                                                jnp.asarray(valid), neg_mode=neg_mode,
+                                                interpret=True), valid)
+
+
+@pytest.mark.parametrize("d", [330, 2048])
+def test_pos_sweep_segmented_wide_d_matches_reference_and_pallas(rng, d):
+    """K4's arithmetic at D = 2048 and D = 330 against the plain version and,
+    through the loss, JAX ``_pc_core_fwd`` in interpret mode."""
+    _check_pos_sweep(*_inputs(rng, 160, d, 19))

@@ -5,8 +5,10 @@ trainer checkpoint (``model_state`` with ``supcon_projection`` and
 ``weather_clf``) go through JAX's ``load_pretrained`` and then
 ``from_jax_variables``, and through the port's ``load_pretrained``, onto
 models that start from the same variables: every tensor is equal, and both
-count the same tensors loaded. A deeplab or ENet blob raises naming
-``ROADMAP.md`` §1 item 4.
+count the same tensors loaded. So do reference DeepLab and ENet trainer
+checkpoints, which JAX routes to ``convert_reference_deeplab`` and
+``convert_reference_enet``. A single-scale SwiftNet checkpoint raises
+naming ``ROADMAP.md`` §1 item 4.
 """
 
 import pytest
@@ -15,12 +17,15 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from doubly_contrastive_semseg_tpu.config import parse_args as jax_parse_args  # noqa: E402
 from doubly_contrastive_semseg_tpu.models import DCSSModel as JaxDCSSModel  # noqa: E402
+from doubly_contrastive_semseg_tpu.models import build_model as jax_build_model  # noqa: E402
 from doubly_contrastive_semseg_tpu.utils.torch_convert import jax_to_py  # noqa: E402
 from doubly_contrastive_semseg_tpu.utils.torch_convert import \
     load_pretrained as jax_load_pretrained  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch import Config, build_model  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.utils import from_jax_variables, load_pretrained  # noqa: E402
+from test_torch_deeplab import jax_tree_from_port, port_from_jax  # noqa: E402
 
 BLOCKS = {1: (64, 64), 2: (64, 128), 3: (128, 256), 4: (256, 512)}
 
@@ -120,10 +125,66 @@ def test_load_pretrained_matches_jax(tmp_path, jax_start, kind):
     assert changed == n
 
 
-@pytest.mark.parametrize("prefix", ["backbone.", "initial_block."])
-def test_other_model_families_raise(tmp_path, prefix):
+def reference_family_checkpoint(cfg, seed):
+    """A reference trainer checkpoint of the DeepLab family (``model_state``
+    with the port's names) or of ENet (the port's ``net.*`` names without
+    ``net.``), with the projection and weather heads beside it."""
+    model = build_model(cfg, device="cpu", seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    sd = {k: (torch.rand(v.shape, generator=g) + 0.5 if v.is_floating_point() else v)
+          for k, v in model.state_dict().items()}
+    strip = "net." if cfg.model == "enet" else ""
+    return {
+        "model_state": {k[len(strip):]: v for k, v in sd.items()
+                        if not k.startswith(("projection.", "weather_clf."))},
+        "supcon_projection": {"0.weight": sd["projection.fc1.weight"],
+                              "0.bias": sd["projection.fc1.bias"],
+                              "2.weight": sd["projection.fc2.weight"],
+                              "2.bias": sd["projection.fc2.bias"]},
+        "weather_clf": {"fc.weight": sd["weather_clf.fc.weight"],
+                        "fc.bias": sd["weather_clf.fc.bias"]},
+    }
+
+
+@pytest.mark.parametrize("name", ["deeplabv3plus_resnet50", "deeplabv3_mobilenet", "enet"])
+def test_load_pretrained_deeplab_and_enet_match_jax(tmp_path, name):
+    """A reference DeepLab (V3+ ResNet, V3 MobileNet) or ENet checkpoint
+    through JAX's ``load_pretrained`` (``convert_reference_deeplab`` /
+    ``convert_reference_enet``) and ``from_jax_variables``, and through the
+    port's: the same tensors, the same count. Both start from the same
+    variables (a port model's, laid out for JAX as ``test_torch_deeplab.py``
+    does)."""
+    cfg = Config(model=name, compute_dtype="float32", criterion="supcon_pixelcontrast_focal")
+    jmodel = jax_build_model(jax_parse_args(["--model", name, "--compute_dtype", "float32"]))
+    params, stats = jax_tree_from_port(build_model(cfg, device="cpu", seed=9), jmodel,
+                                       jnp.zeros((4, 64, 64, 3)), train=True,
+                                       return_supcon_feature=True)
+    path = str(tmp_path / f"{name}.pth")
+    torch.save(reference_family_checkpoint(cfg, 4), path)
+    p, s, n_jax = jax_load_pretrained(params, stats, path)
+    want = from_jax_variables(p, s)
+
+    model = port_from_jax(cfg, params, stats)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    n = load_pretrained(model, path)
+    assert n == n_jax > 100
+    got = model.state_dict()
+    assert set(got) == set(want)
+    changed = 0
+    for k, w in want.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        assert got[k].dtype == w.dtype and torch.equal(got[k], w), k
+        changed += not torch.equal(w, start[k])
+    assert changed == n
+
+
+def test_other_model_families_raise(tmp_path):
+    """A single-scale SwiftNet checkpoint (its SPP decoder): that WeatherNet
+    backbone is not ported yet."""
     path = str(tmp_path / "x.pth")
-    torch.save({"model_state": {f"{prefix}conv.weight": torch.zeros(1)}}, path)
+    torch.save({"model_state": {"feature_extractor.spp.spp.spp_bn.conv.weight":
+                                torch.zeros(1)}}, path)
     model = build_model(Config(compute_dtype="float32"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
         load_pretrained(model, path)
