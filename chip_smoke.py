@@ -116,6 +116,24 @@ name and ENet for one bf16 train step and one eval batch (d); and ``main
 --model deeplabv3plus_resnet101`` for an epoch of 2 steps, ``--test_only``
 on its checkpoint and ``inference`` on 2 PNGs (e).
 
+Then the six other WeatherNet backbones (phase 19, its own generator):
+``resnet18_single`` at full width (SPP at 3 levels of the (8, 4, 2, 1)
+grids, 128 features, 19 classes), random weights, serving 2048×1024 × 8 bf16
+through K1 once a batch, its labels against the plain head on the same
+features on 0.99 of the decided pixels (PR 13's rule) and, at f32, on
+0.9999 of the pixels, serving and eval frames/s (no K1, K2 or K5 launch in
+eval); the published recipe step (768², batch 8 × 2 views, bf16, no kernel),
+one small f32 step card vs CPU and its SPP (6 × 10: unequal windows) and an
+upsample step one at a time; the dense-contrast step (batch 216 on 96²), K3
+4 and K4's layout and sweep once a step, the kernel route's loss and dZ
+against the plain route's, then K3 and K4 alone at its N and D (a); each of ``resnet18_hourglass``,
+``resnet18_rgbd``, ``resnet18_back``, ``mobilenetv2`` and ``efficientnetb0``
+for two bf16 train steps at 2 × 2 views of 256², one eval batch (the
+hourglass's disparity convs not called) and one f32 1024×512 serving batch
+through K1 against the plain head (b); ``main --model resnet18_single`` for
+an epoch of 2 steps and 4 val frames, and ``inference`` on 4 PNGs of
+1080×1920 (c).
+
 Any failure raises and exits non-zero; so does a machine without CUDA or a
 directory without the package. The last line is ``{"ok": true, "device":
 {...}}``; the line before it lists each kernel's launches, error and times.
@@ -146,7 +164,10 @@ RUNTIME_SIZE, INFER_FRAMES = 16, 4      # phase 17: 2 steps an epoch, a val spli
 DEEPLAB = "deeplabv3plus_resnet101"     # phase 18: the DeepLab family's flagship
 DEEPLAB_STEPS = 4
 DEEPLAB_SMALL = (4, 128)                # 18a's card-vs-CPU f32 step: batch, crop
-OTHER_CROP = 256                        # 18d: the other names' train step
+OTHER_CROP = 256                        # 18d, 19b: the other names' train step
+SWIFT = "resnet18_single"               # phase 19: the single-scale SwiftNet
+SWIFT_FAMILY = ("resnet18_single", "resnet18_hourglass", "resnet18_rgbd", "resnet18_back",
+                "mobilenetv2", "efficientnetb0")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1971,6 +1992,465 @@ def deeplab_cli_phase(torch, dev, card, batch_size, reset, read):
         expect_launches(read(), "18e main, --test_only, inference")
 
 
+def decided_agreement(torch, feat, head, labels):
+    """K1's labels against the plain head's on the same features: agreement
+    on all pixels and on the decided ones, where the f32 head's top-two
+    logit gap exceeds twice its logits' error at the features' dtype (PR
+    13's rule: there the plain head at that dtype must take f32's label)."""
+    from doubly_contrastive_semseg_tpu_torch.ops.seghead import fold_bn, seghead_reference
+
+    norm, conv = head.norm, head.conv
+    plain = seghead_reference(feat, norm.weight, norm.bias, norm.running_mean, norm.running_var,
+                              conv.weight, conv.bias, eps=norm.eps)
+    a, shift = fold_bn(norm.weight, norm.bias, norm.running_mean, norm.running_var, norm.eps)
+    w = conv.weight.reshape(conv.weight.shape[0], -1).float()
+    gap, err = [], []
+    for i in range(feat.shape[0]):   # a frame at a time: full-resolution f32 logits
+        act = torch.relu(feat[i:i + 1].float() * a + shift)
+        logits = {}
+        for rounded in (False, True):
+            x = act.to(feat.dtype).float() if rounded else act
+            wr = w.to(feat.dtype).float() if rounded else w
+            lo = torch.einsum("bhwk,ck->bchw", x, wr) + conv.bias.float()[:, None, None]
+            logits[rounded] = torch.nn.functional.interpolate(
+                lo, scale_factor=4, mode="bilinear", align_corners=False)
+        top2 = logits[False].topk(2, dim=1).values
+        gap.append(top2[:, 0] - top2[:, 1])
+        err.append((logits[True] - logits[False]).abs().amax(1))
+    gap, err = torch.cat(gap), torch.cat(err)
+    decided = gap > 2 * err
+    eq = labels == plain
+    return (eq.float().mean().item(), eq[decided].float().mean().item(),
+            decided.float().mean().item())
+
+
+def swift_serving_phase(torch, dev, card, gen, reset, read):
+    """19a. ``SWIFT`` at full width, random weights: serving 2048×1024 × 8
+    bf16 through K1 once a batch, its labels against the plain head on the
+    same features (decided pixels, 0.99); f32 serving of two frames, K1's
+    f32 route against the plain head on 0.9999 of the pixels; eval frames/s
+    with no K1, K2 or K5 launch. Returns {"k1_bf16", "k1_f32", "serve_fps",
+    "eval_fps"}."""
+    from doubly_contrastive_semseg_tpu_torch import Config, build_model, make_serving_fn
+    from doubly_contrastive_semseg_tpu_torch.ops.seghead import fused_seghead_upsample_argmax
+    from doubly_contrastive_semseg_tpu_torch.train import init_eval_accum, make_eval_step
+
+    log(f"== 19a. {SWIFT} serving and eval: {WIDTH}x{HEIGHT}, batch {BATCH}, bf16")
+    torch.backends.cudnn.benchmark = True
+    cfg = Config(model=SWIFT, dataset="acdc")
+    model = build_model(cfg, device="cpu", seed=19)
+    randomize_bn(model, gen)
+    model.to(dev)
+    fe = model.net.feature_extractor
+    check([m.momentum for m in (fe.spp.spp.spp_bn.norm, fe.spp.spp.spp_fuse.norm)] == [0.005] * 2
+          and fe.spp.grids == (8, 4, 2) and fe.spp.spp.spp0.conv.out_channels == 42
+          and len(fe.upsample) == 3 and model.net.segmentation.conv.out_channels == 19,
+          "19a: SwiftNet-RN18 single scale: SPP 3 levels of (8, 4, 2), 128 // 3 wide, BN "
+          "momentum 0.005, 3 upsample steps, 19 classes")
+    serve = make_serving_fn(model, device=dev)
+    image = torch.randint(0, 256, (BATCH, HEIGHT, WIDTH, 3), generator=gen,
+                          dtype=torch.uint8).to(dev)
+    reset()
+    labels = serve(image)
+    torch.cuda.synchronize()
+    got = read()
+    log(f"  one serving batch: launches {got}")
+    check(got["fused_seghead_upsample_argmax"] == 1 and
+          all(v == 0 for k, v in got.items() if k != "fused_seghead_upsample_argmax"),
+          "19a: a serving batch must launch K1 once and nothing else")
+    with torch.no_grad():
+        feat = fe(image)[0].permute(0, 2, 3, 1).contiguous()
+    k1_bf16 = decided_agreement(torch, feat, model.net.segmentation, labels)
+    log(f"  K1 bf16 vs the plain head on the same features: all pixels {k1_bf16[0]:.6f}, "
+        f"decided pixels {k1_bf16[1]:.6f} ({k1_bf16[2]:.6f} of them; bar 0.99)")
+    check(labels.shape == (BATCH, HEIGHT, WIDTH) and labels.dtype == torch.int8
+          and k1_bf16[2] >= 0.5 and k1_bf16[1] >= 0.99,
+          "19a: K1's bf16 labels disagree with the plain head's")
+    head = model.net.segmentation
+    k1_ms = cuda_ms(lambda: fused_seghead_upsample_argmax(
+        feat, head.norm.weight, head.norm.bias, head.norm.running_mean, head.norm.running_var,
+        head.conv.weight, head.conv.bias), iters=20)
+    del feat
+
+    rates = {}
+    eval_step = make_eval_step(model, cfg)
+    accum = init_eval_accum(cfg, dev)
+    batch = {"left": image,
+             "label": torch.randint(0, 19, (BATCH, HEIGHT, WIDTH), generator=gen,
+                                    dtype=torch.int32).to(dev),
+             "weather": torch.randint(0, 4, (BATCH,), generator=gen, dtype=torch.int32).to(dev)}
+    reset()
+    for what, fn in (("serve", lambda: serve(image)), ("eval", lambda: eval_step(batch, accum))):
+        fn()
+        windows = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            windows.append(5 * BATCH / (time.perf_counter() - t0))
+        rates[what] = windows
+    got = read()
+    check(got["fused_seghead_upsample_argmax"] == 16 and
+          all(v == 0 for k, v in got.items() if k != "fused_seghead_upsample_argmax"),
+          f"19a: 16 serving batches launch K1 16 times, 16 eval batches nothing: {got}")
+    serve_fps = BATCH * 3 / sum(BATCH / f for f in rates["serve"])
+    log(f"  {card}: 19a K1 {k1_ms:.4f} ms on this batch's features, "
+        f"{100 * k1_ms * serve_fps / (1e3 * BATCH):.2f} % of a serving batch's "
+        f"{1e3 * BATCH / serve_fps:.2f} ms")
+    log(f"  {card}: 19a serving {serve_fps:.2f} "
+        f"frames/s (windows {', '.join(f'{f:.2f}' for f in rates['serve'])}), eval "
+        f"{BATCH * 3 / sum(BATCH / f for f in rates['eval']):.2f} frames/s (windows "
+        f"{', '.join(f'{f:.2f}' for f in rates['eval'])}); launches {got}")
+    del model, serve, eval_step, batch, accum, image, labels
+    torch.cuda.empty_cache()
+
+    # f32: K1's CUDA-core route
+    cfg32 = Config(model=SWIFT, compute_dtype="float32")
+    model = build_model(cfg32, device="cpu", seed=20)
+    randomize_bn(model, gen)
+    model.to(dev)
+    x = torch.randint(0, 256, (2, HEIGHT, WIDTH, 3), generator=gen).float().to(dev)
+    reset()
+    labels = make_serving_fn(model, device=dev)(x)
+    got = read()
+    with torch.no_grad():
+        feat = model.net.feature_extractor(x)[0].permute(0, 2, 3, 1).contiguous()
+    k1_f32 = decided_agreement(torch, feat, model.net.segmentation, labels)
+    log(f"  f32, 2 frames: K1 vs the plain head on all pixels {k1_f32[0]:.6f} (bar 0.9999); "
+        f"launches {got}")
+    check(got["fused_seghead_upsample_argmax"] == 1 and k1_f32[0] >= 0.9999,
+          "19a: K1's f32 labels disagree with the plain head's")
+    del model, x, feat, labels
+    torch.cuda.empty_cache()
+    return {"k1_bf16": k1_bf16, "k1_f32": k1_f32, "k1_ms": k1_ms, "serve_fps": rates["serve"],
+            "eval_fps": rates["eval"]}
+
+
+def swift_train_phase(torch, dev, card, gen, reset, read):
+    """19a. ``SWIFT`` at the published recipe (768², batch 8 × 2 views,
+    bf16, 6 steps, no kernel), then one small f32 step card vs CPU and its
+    SPP and an upsample step one at a time, at phase 7b's tolerances.
+    Returns {"ms_step", "peak_gb"}."""
+    from doubly_contrastive_semseg_tpu_torch import Config, build_model
+    from doubly_contrastive_semseg_tpu_torch.tools.profile_train import make_batch
+    from doubly_contrastive_semseg_tpu_torch.train import (
+        TrainState, build_optimizer, compute_loss, make_train_step)
+
+    log(f"== 19a. {SWIFT} training: {TRAIN_CROP}² crops, batch {TRAIN_BATCH} x 2 views, bf16, "
+        f"{CRITERION}, 6 steps")
+    torch.backends.cudnn.benchmark = True
+    cfg = Config(model=SWIFT, criterion=CRITERION, dataset="acdc")
+    model = build_model(cfg, device=dev, seed=21)
+    opt = build_optimizer(model, cfg, steps_per_epoch=200)
+    state = TrainState(model, opt)
+    step = make_train_step(model, cfg, opt)
+    batch = make_batch(TRAIN_BATCH, TRAIN_CROP, gen, dev)
+    reset()
+    times = []
+    for i in range(6):
+        if i == 2:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, batch, torch.Generator(device=dev).manual_seed(i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        comps = {k: v.item() for k, v in metrics.items()}
+        check(finite(comps), f"19a step {i}: a loss is not finite: {comps}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect_launches(read(), f"19a {SWIFT}, 6 steps (pixel contrast N = "
+                    f"{TRAIN_BATCH * 19 * 2} < 8192: the plain route)")
+    ms_step = 1e3 * sum(times[2:]) / len(times[2:])
+    log(f"  {card}: 19a {SWIFT} {TRAIN_CROP}² batch {TRAIN_BATCH} x 2 views bf16: {ms_step:.2f} "
+        f"ms a step over steps 2-5 ({', '.join(f'{1e3 * t:.2f}' for t in times[2:])}; steps "
+        f"0-1 {1e3 * times[0]:.1f}, {1e3 * times[1]:.1f}), {TRAIN_BATCH * 1e3 / ms_step:.2f} "
+        f"samples/s, peak memory {peak_gb:.2f} GB; last losses "
+        + ", ".join(f"{k} {v:.4f}" for k, v in comps.items()))
+    del model, opt, state, step, batch, metrics
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    cfg32 = Config(model=SWIFT, criterion=CRITERION, dataset="acdc", reference_rng=True,
+                   compute_dtype="float32")
+    small = make_batch(2, 128, gen, "cpu")
+    base = build_model(cfg32, device="cpu", seed=22)
+    results = {}
+    for where in (dev, "cpu"):
+        m = copy.deepcopy(base).to(where).train()
+        total, comps, _ = compute_loss(m, cfg32, {k: v.to(where) for k, v in small.items()}, None)
+        total.backward()
+        results[where] = ({k: v.item() for k, v in comps.items()},
+                          {k: p.grad.cpu() for k, p in m.named_parameters()
+                           if p.grad is not None})
+        del m
+    (c_gpu, g_gpu), (c_cpu, g_cpu) = results[dev], results["cpu"]
+    gate_free = ("net.segmentation.conv.weight", "net.segmentation.conv.bias",
+                 "projection.fc2.weight", "projection.fc2.bias")
+    comp_rel = max(abs(c_gpu[k] - c_cpu[k]) / max(abs(c_cpu[k]), 1e-30) for k in c_cpu)
+    max_rel = {k: rel_err(torch, g_gpu[k], g_cpu[k]) for k in g_cpu}
+    gate_free_err = max(max_rel[k] for k in gate_free)
+    worst = max(max_rel, key=max_rel.get)
+    log(f"  small f32 step (2 x 2 views, 128²) card vs CPU: loss components max rel err "
+        f"{comp_rel:.2e} (tolerance 1e-4); gate-free gradients {gate_free_err:.2e} of max|g| "
+        f"(tolerance 1e-3); {len(g_cpu)} tensors, the largest error {max_rel[worst]:.2e} of "
+        f"max|g| in {worst} (not held: phase 7b)")
+    check(set(g_gpu) == set(g_cpu) and finite(c_gpu) and comp_rel <= 1e-4
+          and gate_free_err <= 1e-3, f"19a: the card's {SWIFT} step disagrees with the CPU path")
+
+    def nchw(*shape):
+        return torch.randn(*shape, generator=gen).contiguous(memory_format=torch.channels_last)
+
+    # inputs small enough that no ReLU input lies within the two forwards'
+    # rounding of 0 (phase 7b); 6 x 10 under grids of 8 x 13, 4 x 7, 2 x 3:
+    # unequal, overlapping windows
+    fe = base.net.feature_extractor
+    spread = nchw(2, 512, 6, 10) + nchw(2, 512, 1, 1)
+    cases = (("spp (6 x 10: unequal windows)", fe.spp, [spread]),
+             ("upsample.0", fe.upsample[0], [nchw(2, 128, 4, 4), nchw(2, 256, 8, 8)]))
+    for name, block, inputs in cases:
+        errs = block_errors(torch, block, inputs, dev, gen)
+        log(f"  block {name} card vs CPU: output {errs['output']:.2e}, gradients "
+            f"{errs['grads']:.2e}, running stats {errs['stats']:.2e} of max|.| "
+            f"(tolerances 1e-4, 1e-3, 1e-4)")
+        check(errs["output"] <= 1e-4 and errs["grads"] <= 1e-3 and errs["stats"] <= 1e-4,
+              f"19a block {name}: the card disagrees with the CPU")
+    torch.backends.cudnn.deterministic = False
+    del base, results
+    return {"ms_step": ms_step, "peak_gb": peak_gb, "times": times}
+
+
+def swift_dense_phase(torch, dev, card, gen, reset, read, profile_contrastive):
+    """19a. ``SWIFT`` at the dense-contrast size (batch ``DENSE_BATCH`` on
+    ``DENSE_CROP``², 3 steps, layer 4 at 3 × 3 under SPP grids of 8): K3
+    ``LAUNCHES`` times and K4's layout and sweep once a step; on one step's
+    anchors the kernel route's loss and dZ against the plain route's; then
+    K3 and K4 alone at the step's N and D (``profile_contrastive.wide_d``).
+    Returns the launches of the 3 steps, the ms a step and ``wide_d``'s
+    numbers."""
+    from doubly_contrastive_semseg_tpu_torch import Config, build_model
+    from doubly_contrastive_semseg_tpu_torch.losses.pixel_contrast import (
+        _hard_anchor_sampling, _masked_contrastive)
+    from doubly_contrastive_semseg_tpu_torch.ops import contrastive
+    from doubly_contrastive_semseg_tpu_torch.ops.interpolate import resize_nearest
+    from doubly_contrastive_semseg_tpu_torch.tools.profile_contrastive import LAUNCHES
+    from doubly_contrastive_semseg_tpu_torch.tools.profile_train import make_batch
+    from doubly_contrastive_semseg_tpu_torch.train import (
+        TrainState, build_optimizer, make_train_step)
+
+    n_rows = DENSE_BATCH * 19 * 2
+    log(f"== 19a. {SWIFT} dense-contrast step: batch {DENSE_BATCH} x 2 views at "
+        f"{DENSE_CROP}², bf16; pixel contrast N = {n_rows}, D = {D_FEAT}")
+    cfg = Config(model=SWIFT, criterion=CRITERION, dataset="acdc")
+    torch.backends.cudnn.benchmark = False
+    model = build_model(cfg, device=dev, seed=23)
+    opt = build_optimizer(model, cfg, steps_per_epoch=200)
+    state = TrainState(model, opt)
+    step = make_train_step(model, cfg, opt)
+    batch = make_batch(DENSE_BATCH, DENSE_CROP, gen, dev)
+    kernels = {"contrastive_row_stats": contrastive.contrastive_row_stats,
+               "pos_sweep_layout": contrastive.pos_sweep_layout,
+               "pixel_contrast_pos_sweep": contrastive.pixel_contrast_pos_sweep}
+    reset()
+    times = []
+    for i in range(3):
+        before = {k: fn.launches for k, fn in kernels.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, batch, torch.Generator(device=dev).manual_seed(i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        comps = {k: v.item() for k, v in metrics.items()}
+        d3, d_layout, d4 = (fn.launches - before[k] for k, fn in kernels.items())
+        log(f"  step {i}: {1e3 * times[-1]:.1f} ms, K3 launches {d3}, K4 layouts {d_layout} "
+            f"and sweeps {d4}; " + ", ".join(f"{k} {v:.5f}" for k, v in comps.items()))
+        check(d3 == LAUNCHES and d_layout == 1 and d4 == 1,
+              f"19a: each dense step must launch K3 {LAUNCHES} times and K4's layout and sweep "
+              "once")
+        check(finite(comps), f"19a dense step {i}: a loss is not finite")
+    launches = read()
+    check(all(v == 0 for k, v in launches.items() if k not in kernels),
+          f"19a dense: only K3 and K4 may launch: {launches}")
+    ms = 1e3 * sum(times[1:]) / 2
+    log(f"  {card}: 19a dense {ms:.2f} ms a step over steps 2-3 "
+        f"({', '.join(f'{1e3 * t:.2f}' for t in times)} for steps 1-3); launches {launches}")
+
+    model.train()
+    with torch.no_grad():
+        out = model(batch["left"].float(), return_supcon_feature=True)
+        feats = out["fine_feat0"]
+        b, h, w, d = feats.shape
+        preds = resize_nearest(out["seg_beforeup"].argmax(-1), (h, w))
+        labels = resize_nearest(batch["label"], (h, w))
+        anchors, a_lab, a_val = _hard_anchor_sampling(
+            feats.reshape(b, h * w, d).float(), labels.reshape(b, -1),
+            preds.reshape(b, -1).to(labels.dtype), 19, torch.Generator(device=dev).manual_seed(7))
+    del out, feats, preds
+    res = []
+    for use_kernel in (True, False):
+        x = anchors.detach().clone().requires_grad_(True)
+        loss = _masked_contrastive(x, a_lab, a_val, 0.07, 0.07, use_kernel=use_kernel)
+        loss.backward()
+        res.append((loss.item(), x.grad))
+    d_loss = abs(res[0][0] - res[1][0]) / max(abs(res[1][0]), 1e-30)
+    d_grad = ((res[0][1] - res[1][1]).abs().max() / res[1][1].abs().max()).item()
+    log(f"  anchors (N = {2 * anchors.shape[0]}, D = {anchors.shape[-1]}): loss kernel "
+        f"{res[0][0]:.7f}, plain {res[1][0]:.7f} (rel {d_loss:.2e}, tolerance 1e-4); dZ max abs "
+        f"err {d_grad:.2e} of max|dZ| (tolerance 1e-3)")
+    check(d_loss <= 1e-4 and d_grad <= 1e-3,
+          "19a: the kernel route's loss or dZ disagrees with the plain route")
+    del model, opt, state, step, batch, metrics, anchors, res
+    torch.cuda.empty_cache()
+    log(f"  K3 and K4 alone at the step's N = {n_rows}, D = {D_FEAT} (f32):")
+    alone = profile_contrastive.wide_d(gen, dev, log, n=n_rows, ds=(D_FEAT,))[D_FEAT]
+    return launches, ms, alone
+
+
+def other_backbones_phase(torch, dev, card, gen, reset, read):
+    """19b. The other five ported WeatherNet backbones once each: two bf16
+    train steps at 2 × 2 views of ``OTHER_CROP``², one eval batch (the
+    hourglass's calls none of its disparity convs), and one f32 serving
+    batch of 1024×512 through K1, held to the plain head on 0.9999 of the
+    pixels: 5 K1 launches in all. Returns the K1 launches."""
+    from doubly_contrastive_semseg_tpu_torch import Config, build_model, make_serving_fn
+    from doubly_contrastive_semseg_tpu_torch.tools.profile_train import make_batch
+    from doubly_contrastive_semseg_tpu_torch.train import (
+        build_optimizer, compute_loss, init_eval_accum, make_eval_step)
+
+    names = [m for m in SWIFT_FAMILY if m != SWIFT]
+    log(f"== 19b. the other {len(names)} WeatherNet backbones: two bf16 train steps (2 x 2 "
+        f"views, {OTHER_CROP}²), one eval batch, one f32 1024x512 serving batch through K1")
+    torch.backends.cudnn.benchmark = False
+    b, s = 2, OTHER_CROP
+    batch = make_batch(b, s, gen, dev)
+    serve_x = torch.randint(0, 256, (1, 512, 1024, 3), generator=gen).float().to(dev)
+    reset()
+    for name in names:
+        t0 = time.perf_counter()
+        cfg = Config(model=name, criterion=CRITERION, dataset="acdc")
+        model = build_model(cfg, device=dev, seed=24)
+        opt = build_optimizer(model, cfg, steps_per_epoch=200)
+        model.train()
+        step_ms = []
+        for i in range(2):   # the first step meets cuDNN's and the allocator's first calls
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            total, comps, out = compute_loss(model, cfg, batch,
+                                             torch.Generator(device=dev).manual_seed(i))
+            total.backward()
+            opt.step()
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+        shapes = {k: tuple(v.shape) for k, v in out.items()}
+        comps = {k: v.item() for k, v in comps.items()}
+        grads_ok = all(torch.isfinite(p.grad).all().item() for p in model.parameters()
+                       if p.grad is not None)
+        fe = model.net.feature_extractor
+        branch = []
+        if name == "resnet18_hourglass":
+            branch = [m for n in ["conv4a"] + [n for n, *_ in fe._LADDER]
+                      for m in getattr(fe, n).modules()
+                      if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+        calls = []
+        hooks = [m.register_forward_hook(lambda *_: calls.append(1)) for m in branch]
+        preds, accum = make_eval_step(model, cfg)(
+            {"left": batch["left"][:b], "label": batch["label"], "weather": batch["weather"]},
+            init_eval_accum(cfg, dev))
+        for hk in hooks:
+            hk.remove()
+        # the same weights at f32 (no second draw of them: the hourglass has 83 M)
+        with torch.device("meta"):
+            model32 = build_model(Config(model=name, criterion=CRITERION, compute_dtype="float32"),
+                                  device="meta")
+        model32.load_state_dict(model.state_dict(), assign=True)
+        del model, opt, out, total
+        model = model32.to(memory_format=torch.channels_last).eval()
+        randomize_bn(model, gen)
+        before = read()["fused_seghead_upsample_argmax"]
+        labels = make_serving_fn(model, device=dev)(serve_x)
+        k1 = read()["fused_seghead_upsample_argmax"] - before
+        with torch.no_grad():
+            feat = model.net.feature_extractor(serve_x)[0].permute(0, 2, 3, 1).contiguous()
+        agree = decided_agreement(torch, feat, model.net.segmentation, labels)[0]
+        torch.cuda.synchronize()
+        log(f"  {card}: 19b {name}: train step {step_ms[1]:.2f} ms (first {step_ms[0]:.1f}); "
+            f"fine_feat {shapes['fine_feat']}, loss {comps['total_loss']:.4f}, eval "
+            f"preds {tuple(preds.shape)}" + (f", disparity convs in eval {len(calls)} of "
+                                             f"{len(branch)}" if branch else "")
+            + f"; f32 serving K1 launches {k1}, labels vs the plain head {agree:.6f} (bar "
+            f"0.9999); {time.perf_counter() - t0:.1f} s")
+        check(shapes["seg"] == (b, s, s, 19) and shapes["fine_feat"] == (2 * b, s // 4, s // 4, 128)
+              and shapes["supcon_proj"] == (b, 2, 128) and finite(comps) and grads_ok
+              and tuple(preds.shape) == (b, s, s)
+              and float(accum["cm"].sum()) == float((batch["label"] != 255).sum())
+              and not calls and (name != "resnet18_hourglass" or len(branch) == 25),
+              f"19b {name}: outputs {shapes}, losses {comps}, finite gradients {grads_ok}, "
+              f"disparity convs in eval {len(calls)}")
+        check(k1 == 1 and labels.shape == (1, 512, 1024) and agree >= 0.9999,
+              f"19b {name}: f32 serving through K1")
+        del model, feat, labels, preds, accum
+        torch.cuda.empty_cache()
+    got = read()
+    log(f"  19b launches: {got}")
+    check(got["fused_seghead_upsample_argmax"] == len(names) and
+          all(v == 0 for k, v in got.items() if k != "fused_seghead_upsample_argmax"),
+          f"19b: K1 once a model ({len(names)}) and nothing else: {got}")
+    return got["fused_seghead_upsample_argmax"]
+
+
+def swift_cli_phase(torch, dev, card, reset, read):
+    """19c. ``main --model SWIFT``: one epoch of 2 steps (host crops, 1
+    loader thread) and 4 val frames of 1024×2048; ``inference`` with its
+    checkpoint on 4 PNGs of ``VAL_WIDTH``×``VAL_HEIGHT`` (layer 4 at 34 ×
+    60: the SPP's unequal windows). No kernel launches on these paths."""
+    from doubly_contrastive_semseg_tpu_torch import inference as port_inference
+    from doubly_contrastive_semseg_tpu_torch.data import SyntheticDataset, read_png, write_png
+    from doubly_contrastive_semseg_tpu_torch.main import main as port_main
+
+    with tempfile.TemporaryDirectory() as base:
+        argv = ["--dataset", "synthetic", "--synthetic_hw", SYNTHETIC_HW,
+                "--synthetic_size", str(2 * TRAIN_BATCH), "--train_semantic",
+                "--criterion", CRITERION, "--batch_size", str(TRAIN_BATCH),
+                "--print_freq", "1", "--summary_freq", "1", "--run_root", base,
+                "--device", dev.type, "--model", SWIFT, "--epochs", "1", "--num_workers", "1"]
+        log(f"== 19c. main --model {SWIFT}: 1 epoch of 2 steps, validate; inference on "
+            f"{INFER_FRAMES} PNGs of {VAL_WIDTH}x{VAL_HEIGHT}")
+        reset()
+        t0 = time.perf_counter()
+        tr = port_main(argv)
+        dt = time.perf_counter() - t0
+        losses = scalars(tr.saver.experiment_dir, "train/total_loss_print_freq")
+        check(len(losses) == 2 and all(np.isfinite(v) for _, v in losses),
+              f"19c: 2 finite losses in metrics.jsonl: {losses}")
+        ((_, frames, wall),) = tr.val_times
+        best = os.path.join(tr.saver.checkpoint_dir, "score_best_checkpoint")
+        check(os.path.exists(best), "19c: main saved no score_best_checkpoint")
+        log(f"  {card}: 19c main: {dt:.2f} s (epoch {tr.epoch_seconds[0]:.2f} s); ms a step "
+            "(loader wait, step): " + ", ".join(f"({1e3 * s[1]:.1f}, {1e3 * s[2]:.1f})"
+                                                for s in tr.step_times)
+            + f"; val {frames} frames, {frames / wall:.2f} frames/s end to end; checkpoint "
+            f"{os.path.getsize(best) / 1e6:.2f} MB")
+        del tr
+        frames_dir, out_dir = os.path.join(base, "frames"), os.path.join(base, "out")
+        os.makedirs(frames_dir)
+        src = SyntheticDataset(size=INFER_FRAMES, image_hw=(VAL_HEIGHT, VAL_WIDTH), seed=19)
+        for i in range(INFER_FRAMES):
+            write_png(os.path.join(frames_dir, f"frame{i}.png"), src[i]["left"], "adaptive")
+        res = port_inference.main(["--input", frames_dir, "--resume", best, "--model", SWIFT,
+                                   "--device", dev.type, "--output_dir", out_dir])
+        for i in range(INFER_FRAMES):
+            pred = read_png(os.path.join(out_dir, f"frame{i}_pred.png"))
+            check(pred.shape == (VAL_HEIGHT, VAL_WIDTH) and int(pred.max()) < 19,
+                  f"19c: inference's frame{i}_pred.png")
+        fwd = res["forward_s"][1:]
+        log(f"  {card}: 19c inference: {INFER_FRAMES} frames, {len(fwd) / sum(fwd):.2f} "
+            "frames/s (first skipped)")
+        expect_launches(read(), "19c main, inference")
+
+
 def main() -> int:
     import torch
 
@@ -2259,6 +2739,29 @@ def main() -> int:
                          "max_abs_err": t[f"{k}_err"]} for d, t in wide.items()}}
     kernels[3]["deeplab"] = {"launches": dense18["pos_sweep_layout"]}
     log(f"== 18. done in {time.perf_counter() - t18:.1f} s")
+
+    # 19. the six other WeatherNet backbones; its own generator
+    t19 = time.perf_counter()
+    gen19 = torch.Generator().manual_seed(19)
+    serve19 = swift_serving_phase(torch, dev, card, gen19, reset, read)
+    train19 = swift_train_phase(torch, dev, card, gen19, reset, read)
+    dense19, dense19_ms, alone19 = swift_dense_phase(torch, dev, card, gen19, reset, read,
+                                                     profile_contrastive)
+    k1_others = other_backbones_phase(torch, dev, card, gen19, reset, read)
+    swift_cli_phase(torch, dev, card, reset, read)
+    kernels[1]["weathernet_backbones"] = {
+        SWIFT: {"launches_a_serving_batch": 1, "ms": serve19["k1_ms"],
+                "bf16_agreement_decided": serve19["k1_bf16"][1],
+                "f32_agreement": serve19["k1_f32"][0]},
+        "other_five_f32_serving": k1_others}
+    for i, name, k in ((2, "contrastive_row_stats", "k3"), (3, "pos_sweep_layout", None),
+                       (4, "pixel_contrast_pos_sweep", "k4")):
+        kernels[i][SWIFT] = {"launches": dense19[name], "n": DENSE_BATCH * 19 * 2}
+        if k:
+            kernels[i][SWIFT].update({key: alone19[f"{k}_{key}"] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by")})
+    log(f"== 19. done in {time.perf_counter() - t19:.1f} s (recipe step {train19['ms_step']:.2f} "
+        f"ms, dense step {dense19_ms:.2f} ms)")
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

@@ -53,9 +53,8 @@ MODELS = (
 )
 
 STEREO_DATASETS = ("sceneflow", "kitti_2015", "kitti_mix")
-# every name of MODELS but the WeatherNet backbones of ROADMAP.md §1 item 4
-PORTED_MODELS = ("resnet18", "resnet34", "enet") + tuple(
-    m for m in MODELS if m.startswith("deeplabv3"))
+# every name of MODELS: the WeatherNet backbones, ENet and the DeepLab family
+PORTED_MODELS = MODELS
 
 # num_classes by dataset (reference utils/init_trainer.py:40-48)
 NUM_CLASSES = {"cityscapes": 19, "kitti_2015": 19, "kitti_mix": 19, "acdc": 19,
@@ -262,8 +261,6 @@ def check_ported(cfg: Config) -> None:
             cfg.dataset == "synthetic" and not cfg.train_semantic
             and cfg.criterion == "none" and cfg.transfer_disparity):
         todo = f"the stereo route (dataset {cfg.dataset!r}) is ROADMAP.md §1 item 5"
-    elif cfg.model not in PORTED_MODELS:
-        todo = f"model {cfg.model!r} is ROADMAP.md §1 item 4"
     elif cfg.tsne:
         todo = "--tsne is ROADMAP.md §1 item 6"
     elif cfg.loader != "thread":

@@ -22,7 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.blend import blend_kernel_supported, fused_upsample_blend
-from ..ops.interpolate import resize_bilinear
+from ..ops.interpolate import adaptive_avg_pool, resize_bilinear
 from ..ops.seghead import fold_bn
 
 # torch BatchNorm momentum of the reference (network/utils.py:36)
@@ -30,12 +30,14 @@ TORCH_BN_MOMENTUM = 0.1
 
 
 class TorchBatchNorm(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1). In eval it applies the
-    folded float32 scale/shift in the activation dtype; in training it is
-    ``nn.BatchNorm2d`` itself."""
+    """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1 unless given: JAX
+    ``batch_norm``'s ``momentum`` and ``epsilon``, ``blocks.py:117-131``). In
+    eval it applies the folded float32 scale/shift in the activation dtype;
+    in training it is ``nn.BatchNorm2d`` itself."""
 
-    def __init__(self, features: int):
-        super().__init__(features, eps=1e-5, momentum=TORCH_BN_MOMENTUM)
+    def __init__(self, features: int, momentum: float = TORCH_BN_MOMENTUM,
+                 eps: float = 1e-5):
+        super().__init__(features, eps=eps, momentum=momentum)
 
     def folded(self):
         """(scale, shift), float32: eval BN is x·scale + shift."""
@@ -50,8 +52,9 @@ class TorchBatchNorm(nn.BatchNorm2d):
                              scale.to(x.dtype)[:, None, None])
 
 
-def batch_norm(features: int) -> TorchBatchNorm:
-    return TorchBatchNorm(features)
+def batch_norm(features: int, momentum: float = TORCH_BN_MOMENTUM,
+               eps: float = 1e-5) -> TorchBatchNorm:
+    return TorchBatchNorm(features, momentum, eps)
 
 
 class Conv2d(nn.Conv2d):
@@ -126,6 +129,16 @@ class Dropout(nn.Module):
         return torch.where(self.keep_mask(x), x / (1.0 - self.p), 0.0)
 
 
+class DropConnect(Dropout):
+    """Per-sample dropout at rate ``p`` (EfficientNet's drop-connect, JAX
+    ``efficientnet_pyramid.py:102-108``): one keep draw a sample, a (B, 1,
+    1, 1) mask; the kept samples are scaled by 1/(1 − p)."""
+
+    def keep_mask(self, x: torch.Tensor) -> torch.Tensor:
+        u = torch.rand((x.shape[0], 1, 1, 1), generator=self.generator, device=x.device)
+        return u >= self.p
+
+
 def set_dropout_generator(model: nn.Module, generator) -> None:
     """Every ``Dropout`` of ``model`` draws its masks from ``generator``."""
     for m in model.modules():
@@ -141,12 +154,13 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
 class BNReluConv(nn.Module):
     """BN → ReLU → conv, SwiftNet's pre-activation unit (reference
     ``network/utils.py:35-49``); the segmentation head with ``k=1,
-    bias=True``. Modules ``norm`` and ``conv`` carry the reference names."""
+    bias=True``. Modules ``norm`` and ``conv`` carry the reference names;
+    ``bn_momentum`` is the BN's (JAX ``BNReluConv.bn_momentum``)."""
 
     def __init__(self, in_features: int, features: int, k: int = 3,
-                 bias: bool = False):
+                 bias: bool = False, bn_momentum: float = TORCH_BN_MOMENTUM):
         super().__init__()
-        self.norm = batch_norm(in_features)
+        self.norm = batch_norm(in_features, bn_momentum)
         self.conv = conv_kxk(in_features, features, k=k, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -197,6 +211,59 @@ class UpsampleBlend(nn.Module):
         hh, ww = skip.shape[-2:]
         x = resize_bilinear(x.permute(0, 2, 3, 1), (hh, ww)).permute(0, 3, 1, 2)
         return self.blend_conv(x + skip)
+
+
+class Upsample(nn.Module):
+    """The single-scale SwiftNets' decoder step (reference ``_Upsample``,
+    ``network/utils.py:52-77``; JAX ``blocks.py:352-372``): a 1×1
+    pre-activation ``bottleneck`` of the skip to ``num_maps_in`` channels,
+    the input bilinear-resized to the skip's size and added, then the 3×3
+    pre-activation ``blend_conv``."""
+
+    def __init__(self, skip_in: int, num_maps_in: int = 128, features: int = 128):
+        super().__init__()
+        self.bottleneck = BNReluConv(skip_in, num_maps_in, k=1)
+        self.blend_conv = BNReluConv(num_maps_in, features, k=3)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        skip = self.bottleneck(skip)
+        x = resize_bilinear(x.permute(0, 2, 3, 1), tuple(skip.shape[-2:])).permute(0, 3, 1, 2)
+        return self.blend_conv(x + skip)
+
+
+class SpatialPyramidPooling(nn.Module):
+    """SwiftNet's SPP with aspect-aware grids (reference ``network/
+    utils.py:105-156``; JAX ``blocks.py:375-413``): a 1×1 ``spp_bn`` to
+    ``bt_size``, then ``num_levels`` levels each average-pooled to ``(g,
+    max(1, round(g·W/H)))``, a 1×1 pre-activation conv to ``level_size`` and
+    resized back, all concatenated and fused by a 1×1 ``spp_fuse``. The
+    convs sit in the Sequential ``spp``, the reference's
+    ``spp.{spp_bn, spp0, ..., spp_fuse}``."""
+
+    def __init__(self, in_features: int, num_levels: int = 3, bt_size: int = 512,
+                 level_size: int = 128, out_size: int = 128, grids=(6, 3, 2, 1),
+                 bn_momentum: float = TORCH_BN_MOMENTUM):
+        super().__init__()
+        self.grids = tuple(grids[:num_levels])
+        self.spp = nn.Sequential()
+        self.spp.add_module("spp_bn", BNReluConv(in_features, bt_size, k=1,
+                                                 bn_momentum=bn_momentum))
+        for i in range(num_levels):
+            self.spp.add_module(f"spp{i}", BNReluConv(bt_size, level_size, k=1,
+                                                      bn_momentum=bn_momentum))
+        self.spp.add_module("spp_fuse", BNReluConv(bt_size + num_levels * level_size,
+                                                   out_size, k=1, bn_momentum=bn_momentum))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        hw = tuple(x.shape[-2:])
+        ar = hw[1] / hw[0]
+        x = self.spp.spp_bn(x)
+        levels = [x]
+        for i, g in enumerate(self.grids):
+            pooled = adaptive_avg_pool(x.permute(0, 2, 3, 1), (g, max(1, round(ar * g))))
+            lvl = getattr(self.spp, f"spp{i}")(pooled.permute(0, 3, 1, 2))
+            levels.append(resize_bilinear(lvl.permute(0, 2, 3, 1), hw).permute(0, 3, 1, 2))
+        return self.spp.spp_fuse(torch.cat(levels, dim=1))
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

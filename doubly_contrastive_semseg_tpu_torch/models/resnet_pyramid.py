@@ -94,15 +94,20 @@ class PyramidResNet(nn.Module):
             blocks = []
             for bi in range(n_blocks):
                 stride = 2 if (si > 0 and bi == 0) else 1
-                blocks.append(BasicBlock(in_planes, planes, stride, efficient))
+                blocks.append(self._block(in_planes, planes, stride, efficient))
                 in_planes = planes
             setattr(self, f"layer{si + 1}", nn.Sequential(*blocks))
+            # each bottleneck after its stage: seeded weights draw in this order
             setattr(self, f"upsample_bottlenecks{si + 1}",
                     conv_kxk(planes, NUM_FEATURES, k=1))
-        # output stride 4: PYRAMID_LEVELS + 3 skip resolutions
-        self.num_skip_levels = PYRAMID_LEVELS + 3
-        for i in range(1, self.num_skip_levels):
-            setattr(self, f"upsample_blends{i}", UpsampleBlend(NUM_FEATURES))
+        add_pyramid_decoder(self)
+
+    def _block(self, in_planes: int, planes: int, stride: int, efficient: bool) -> nn.Module:
+        return BasicBlock(in_planes, planes, stride, efficient)
+
+    def _stage(self, j: int, x: torch.Tensor, idx: int) -> torch.Tensor:
+        """Stage ``j`` of the trunk on pyramid level ``idx``'s stream."""
+        return getattr(self, f"layer{j + 1}")(x)
 
     def _stem(self, level: torch.Tensor, idx: int) -> torch.Tensor:
         bn = getattr(self, f"bn1_{idx}")
@@ -115,23 +120,48 @@ class PyramidResNet(nn.Module):
 
     def forward(self, image: torch.Tensor):
         pyramid = build_pyramid(image, PYRAMID_LEVELS, self.dtype)
-        skips: Dict[int, list] = {lvl: [] for lvl in range(self.num_skip_levels)}
+        skips = pyramid_skips()
         for idx, level in enumerate(pyramid):
             x = self._stem(level, idx)
             for j in range(4):
-                x = getattr(self, f"layer{j + 1}")(x)
+                x = self._stage(j, x, idx)
                 skips[idx + j].append(getattr(self, f"upsample_bottlenecks{j + 1}")(x))
+        return pyramid_decode(self, skips)
 
-        # reversed: the coarsest level first (reference resnet_pyramid.py:361)
-        skips_r = [skips[lvl] for lvl in reversed(range(self.num_skip_levels))]
-        x = skips_r[0][0]
-        additional = {"skips_0": x}
-        for i in range(1, self.num_skip_levels):
-            skip_sum = skips_r[i][0]
-            for s in skips_r[i][1:]:
-                skip_sum = skip_sum + s
-            x = getattr(self, f"upsample_blends{i}")(x, skip_sum)
-        return x, additional
+
+def add_pyramid_decoder(module: nn.Module, skip_widths: Sequence[int] = ()) -> None:
+    """The pyramid harness's decoder on ``module``: a 1×1 bottleneck to 128
+    channels for each of the 4 skip stages (``upsample_bottlenecks{1..4}``,
+    their inputs ``skip_widths`` wide; none where the module registers its
+    own) and ``PYRAMID_LEVELS`` + 2 blends (``upsample_blends{1..5}``:
+    output stride 4)."""
+    module.num_skip_levels = PYRAMID_LEVELS + 3
+    for j, width in enumerate(skip_widths):
+        setattr(module, f"upsample_bottlenecks{j + 1}", conv_kxk(width, NUM_FEATURES, k=1))
+    for i in range(1, module.num_skip_levels):
+        setattr(module, f"upsample_blends{i}", UpsampleBlend(NUM_FEATURES))
+
+
+def pyramid_skips() -> Dict[int, list]:
+    """The resolution-indexed skip lists: level ``idx``'s stage ``j`` lands
+    in ``skips[idx + j]``."""
+    return {lvl: [] for lvl in range(PYRAMID_LEVELS + 3)}
+
+
+def pyramid_decode(module: nn.Module, skips: Dict[int, list]):
+    """From the coarsest skip sum up the blend ladder of ``module``
+    (``add_pyramid_decoder``): (decoded 128-channel features at 1/4
+    resolution, {"skips_0": the coarsest skip})."""
+    # reversed: the coarsest level first (reference resnet_pyramid.py:361)
+    skips_r = [skips[lvl] for lvl in reversed(range(len(skips)))]
+    x = skips_r[0][0]
+    additional = {"skips_0": x}
+    for i in range(1, len(skips)):
+        skip_sum = skips_r[i][0]
+        for s in skips_r[i][1:]:
+            skip_sum = skip_sum + s
+        x = getattr(module, f"upsample_blends{i}")(x, skip_sum)
+    return x, additional
 
 
 def resnet18_pyramid(**kw) -> PyramidResNet:

@@ -8,7 +8,7 @@ mode is the module's (``model.train()``), where JAX passes ``train=True``.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -16,7 +16,18 @@ import torch.nn as nn
 from ..ops.input_pipeline import image_hw
 from ..ops.interpolate import resize_bilinear
 from .blocks import BNReluConv, init_weights
+from .efficientnet_pyramid import PyramidEfficientNet
+from .mobilenetv2_pyramid import PyramidMobileNetV2
 from .resnet_pyramid import resnet18_pyramid, resnet34_pyramid
+from .resnet_pyramid_back import resnet18_pyramid_back
+from .swiftnet_single import BACKBONES as SINGLE_SCALE
+from .swiftnet_single import RGBDSwiftNet
+
+# the backbones JAX builds without the fused stem and remat (weathernet.py:99-122)
+_PLAIN = {"efficientnetb0": PyramidEfficientNet, "mobilenetv2": PyramidMobileNetV2,
+          "resnet18_back": resnet18_pyramid_back, **SINGLE_SCALE}
+# JAX's DCSSModel backbones (weathernet.py:88-122, build_model :209-212)
+BACKBONES = ("resnet18", "resnet34") + tuple(_PLAIN)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -66,6 +77,19 @@ class ProjectionHead(nn.Module):
                                     self.fc2.bias.to(x.dtype)).float()
 
 
+def feature_extractor(backbone: str, fuse_stem: bool = True, efficient: bool = True,
+                      dtype: torch.dtype = torch.float32) -> nn.Module:
+    """WeatherNet's backbone by name, as JAX routes it
+    (``weathernet.py:88-122``): the pyramid ResNets take ``fuse_stem`` and
+    ``efficient``, the six others neither."""
+    if backbone in ("resnet18", "resnet34"):
+        factory = resnet18_pyramid if backbone == "resnet18" else resnet34_pyramid
+        return factory(fuse_stem=fuse_stem, efficient=efficient, dtype=dtype)
+    if backbone in _PLAIN:
+        return _PLAIN[backbone](dtype)
+    raise NotImplementedError(f"backbone {backbone}")
+
+
 class WeatherNet(nn.Module):
     """Pyramid backbone → 1×1 BNReluConv seg head → bilinear upsample to the
     input size (reference ``network/weathernet.py:60-98``)."""
@@ -74,23 +98,19 @@ class WeatherNet(nn.Module):
                  fuse_stem: bool = True, efficient: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if backbone == "resnet18":
-            factory = resnet18_pyramid
-        elif backbone == "resnet34":
-            factory = resnet34_pyramid
-        else:
-            raise NotImplementedError(
-                f"backbone {backbone!r} is not ported yet (see ROADMAP.md)")
-        self.feature_extractor = factory(fuse_stem=fuse_stem, efficient=efficient,
-                                         dtype=dtype)
+        self.feature_extractor = feature_extractor(backbone, fuse_stem, efficient, dtype)
         self.segmentation = BNReluConv(128, num_classes, k=1, bias=True)
 
-    def forward(self, image: torch.Tensor,
-                return_supcon_feature: bool = False) -> Dict[str, torch.Tensor]:
+    def forward(self, image: torch.Tensor, return_supcon_feature: bool = False,
+                depth: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """With ``return_supcon_feature`` the batch is the two-view concat
         (2B, H, W, 3) and only the first view (``fine_feat0``) feeds the seg
-        head (reference ``weathernet.py:76-85``)."""
-        feat, additional = self.feature_extractor(image)
+        head (reference ``weathernet.py:76-85``). ``depth`` reaches the RGB-D
+        backbone only (zeros when not given, as in JAX)."""
+        if isinstance(self.feature_extractor, RGBDSwiftNet):
+            feat, additional = self.feature_extractor(image, depth)
+        else:
+            feat, additional = self.feature_extractor(image)
         feat0 = feat[:feat.shape[0] // 2] if return_supcon_feature else feat
         seg_beforeup = self.seg_logits(feat0)
         return {
@@ -124,13 +144,13 @@ class DCSSModel(nn.Module):
         self.weather_clf = WeatherClassifier(128, weather_num)
         self.projection = ProjectionHead(128, 128) if projection else None
 
-    def forward(self, image: torch.Tensor,
-                return_supcon_feature: bool = False) -> Dict[str, torch.Tensor]:
+    def forward(self, image: torch.Tensor, return_supcon_feature: bool = False,
+                depth: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """``return_supcon_feature``: ``image`` is the two-view concat
         (2B, H, W, 3); ``supcon_proj`` is the (B, 2, 128) projection of the
         globally pooled features of both views (reference
-        ``utils/loss.py:114-120``)."""
-        out = self.net(image, return_supcon_feature)
+        ``utils/loss.py:114-120``). ``depth``: the RGB-D backbone's."""
+        out = self.net(image, return_supcon_feature, depth)
         out["weather_logits"] = self.weather_clf(out["fine_feat0"])
         if return_supcon_feature:
             if self.projection is None:
@@ -143,12 +163,11 @@ class DCSSModel(nn.Module):
 def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
     """Model factory (reference ``utils/init_trainer.py:97-111``), routed as
     JAX's: ``--deeplab`` or a ``deeplabv3*`` name → ``DeepLabDCSS``,
-    ``enet`` → ``ENetDCSS``, ``resnet18`` / ``resnet34`` → ``DCSSModel``.
-    Weights are drawn from ``torch.Generator`` seeded by ``seed``; the model
-    is returned in eval mode. A SupCon criterion (``cfg.use_supcon``) adds
-    the projection head. Runs on the card unless ``device`` asks for the
-    CPU. The names not ported yet raise ``NotImplementedError``
-    (``config.check_ported``)."""
+    ``enet`` → ``ENetDCSS``, a WeatherNet backbone (``BACKBONES``) →
+    ``DCSSModel``. Weights are drawn from ``torch.Generator`` seeded by
+    ``seed``; the model is returned in eval mode. A SupCon criterion
+    (``cfg.use_supcon``) adds the projection head. Runs on the card unless
+    ``device`` asks for the CPU."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: CUDA is not available; pass "
@@ -160,12 +179,11 @@ def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
     elif cfg.model == "enet":
         from .enet import build_enet_dcss
         model = build_enet_dcss(cfg, dtype)
-    elif cfg.model in ("resnet18", "resnet34"):
+    elif cfg.model in BACKBONES:
         model = DCSSModel(backbone=cfg.model, num_classes=cfg.num_classes,
                           weather_num=cfg.weather_num, fuse_stem=cfg.fuse_stem,
                           efficient=cfg.efficient, projection=cfg.use_supcon, dtype=dtype)
     else:
-        raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet (see ROADMAP.md §1 item 4)")
+        raise NotImplementedError(f"model {cfg.model}")
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device=device, memory_format=torch.channels_last).eval()

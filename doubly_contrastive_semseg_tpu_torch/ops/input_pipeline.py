@@ -63,17 +63,17 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def normalize(image: torch.Tensor) -> torch.Tensor:
+def normalize(image: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD) -> torch.Tensor:
     """Pixels in any layout (``to_nhwc``) → (B, H, W, 3) float32
-    ``(x - IMAGENET_MEAN) / IMAGENET_STD``."""
+    ``(x - mean) / std``, the ImageNet-scale constants unless given."""
     image = to_nhwc(image)
-    m = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=image.device)
-    s = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=image.device)
+    m = torch.tensor(mean, dtype=torch.float32, device=image.device)
+    s = torch.tensor(std, dtype=torch.float32, device=image.device)
     return (image.float() - m) / s
 
 
-def build_pyramid(image: torch.Tensor, levels: int,
-                  dtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
+def build_pyramid(image: torch.Tensor, levels: int, dtype: torch.dtype = torch.float32,
+                  mean=IMAGENET_MEAN, std=IMAGENET_STD) -> List[torch.Tensor]:
     """Normalised pyramid [x, x/2, x/4, ...] of dense contiguous NHWC levels,
     each computed directly from the full image. Normalisation and bicubic
     run in float32 and each level is then cast to ``dtype`` (the JAX side also
@@ -82,9 +82,9 @@ def build_pyramid(image: torch.Tensor, levels: int,
     gives it, ``pyramid_hw``; where that is larger than the bicubic level,
     the extra row or column is the bicubic formula read with the border
     clamped, as JAX's clamp padding gives it. ``image`` may come in any
-    of the three layouts (``to_nhwc``)."""
+    of the three layouts (``to_nhwc``); ``mean`` and ``std`` as ``normalize``'s."""
     image = to_nhwc(image)
-    xn = normalize(image)
+    xn = normalize(image, mean, std)
     out = []
     for lv in range(levels):
         hh, ww = pyramid_hw(image.shape[1], image.shape[2], lv)
@@ -154,3 +154,24 @@ def stem_dense_kernel_from_s2d(w_s2d: np.ndarray, k: int = 7) -> np.ndarray:
     for ty, tx, ka, kb, phase in _s2d_slots(k):
         dense[ty, tx] = w_s2d[ka, kb, ci * 4 + phase]
     return dense
+
+
+def s2d_kernel_to_dense(w_s2d: np.ndarray) -> np.ndarray:
+    """An s2d(2) stem kernel with every slot live (k', k', 4C, O), channel
+    order ``c * 4 + phase``, → the dense (2k', 2k', C, O) stride-2 kernel it
+    is: slot (ka, kb, c·4 + i0·2 + j0) is dense tap (2ka + i0, 2kb + j0).
+    Over the s2d grid padded (pl, pr) cells it reads the dense image padded
+    (2·pl, 2·pr + 1) pixels (``s2d_dense_padding``). The JAX pyramids whose
+    stem is unmasked (MobileNetV2 over ``s2d_stem_geometry(7)``,
+    EfficientNet-B0 over ``s2d_stem_geometry(3)``) hold such kernels."""
+    k, _, cc, o = w_s2d.shape
+    c = cc // 4
+    return (w_s2d.reshape(k, k, c, 2, 2, o).transpose(0, 3, 1, 4, 2, 5)
+            .reshape(2 * k, 2 * k, c, o))
+
+
+def s2d_dense_padding(k: int) -> Tuple[int, int]:
+    """(top/left, bottom/right) pixel padding of the dense stride-2 form
+    (``s2d_kernel_to_dense``) of the s2d(2) conv of a k×k stem."""
+    _, (pl_, pr_) = s2d_stem_geometry(k)
+    return 2 * pl_, 2 * pr_ + 1

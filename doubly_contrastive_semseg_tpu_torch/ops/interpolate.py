@@ -60,3 +60,12 @@ def downsample_bicubic_direct(x: torch.Tensor, level: int) -> torch.Tensor:
     y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2.0 ** -level,
                       mode="bicubic", align_corners=False)
     return y.permute(0, 2, 3, 1)
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """torch ``adaptive_avg_pool2d`` on an NHWC tensor (JAX
+    ``ops/interpolate.py::adaptive_avg_pool``, SwiftNet's SPP grids): output
+    cell i averages rows ``[floor(i·H/o), ceil((i+1)·H/o))``, so windows are
+    unequal where o does not divide H and overlap where o exceeds H."""
+    y = F.adaptive_avg_pool2d(x.permute(0, 3, 1, 2), tuple(out_hw))
+    return y.permute(0, 2, 3, 1)

@@ -7,11 +7,15 @@ nor the JAX package. Conventions, the inverse of the JAX package's
 (kh, kw, 1, C) → (C, 1, kh, kw)), a transposed conv's flipped (kh, kw, I, O)
 kernel → torch's (I, O, kh, kw), dense (I, O) → (O, I), BN
 scale/bias/mean/var → weight/bias/running_mean/running_var, a PReLU's
-``alpha`` → ``weight``, and the s2d stem kernel (4, 4, 12, 64) → the dense
-(64, 3, 7, 7) ``conv1.weight``. The module paths of JAX's ``DCSSModel``
-(``net/feature_extractor``), ``DeepLabDCSS`` (top-level ``backbone``,
-``classifier``) and ``ENetDCSS`` (``net/initial_block``, ...) become the
-reference's torch names, which the port's modules carry. A JAX model
+``alpha`` → ``weight``, the pyramid ResNets' masked s2d stem kernel (4, 4,
+12, 64) → the dense (64, 3, 7, 7) ``conv1.weight``, and the unmasked s2d
+stems of the MobileNetV2 pyramid (``conv1_kernel``, (4, 4, 12, 32)) and the
+EfficientNet pyramid (``stem_conv``, (2, 2, 12, 32)) → the dense 8×8 and
+4×4 kernels they are. The module paths of JAX's ``DCSSModel``
+(``net/feature_extractor``, every backbone), ``DeepLabDCSS`` (top-level
+``backbone``, ``classifier``) and ``ENetDCSS`` (``net/initial_block``, ...)
+become the reference's torch names where the port's modules carry them,
+JAX's names in torch form elsewhere (``_feature_extractor``). A JAX model
 initialised for training (``return_supcon_feature=True``) has
 ``projection/{fc1,fc2}``, which land on ``projection.{fc1,fc2}`` of a port
 model built with ``projection=True``. A tree of gradients maps like a tree
@@ -26,7 +30,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from ..ops.input_pipeline import stem_dense_kernel_from_s2d
+from ..ops.input_pipeline import s2d_kernel_to_dense, stem_dense_kernel_from_s2d
 
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}
 _SEP = {"depthwise": "body.0", "pointwise": "body.1"}
@@ -86,18 +90,51 @@ def _deeplab_head(path: Tuple[str, ...], v3plus: bool) -> str:
     return "classifier.classifier.3" if v3plus else "classifier.4"
 
 
+def _inverted_residual(path: Tuple[str, ...], expand: bool) -> str:
+    """A JAX ``InvertedResidual``'s module (``expand``, ``depthwise``, each
+    with ``conv`` and ``bn``; ``project``, ``project_bn``) → its index in
+    the reference's ``conv`` Sequential."""
+    dw, pj = (1, 2) if expand else (0, 1)
+    sub = {"expand": "0", "depthwise": str(dw), "project": str(pj),
+           "project_bn": str(pj + 1)}[path[0]]
+    if path[0] in ("expand", "depthwise"):
+        sub += ".0" if path[1] == "conv" else ".1"
+    return f"conv.{sub}"
+
+
 def _mobilenet(path: Tuple[str, ...], backbone: Mapping) -> str:
     if path[0] == "stem":
         return "low_level_features.0." + ("0" if path[1] == "conv" else "1")
     i = int(path[0][len("block"):])
     sect = "low_level_features" if i < 4 else "high_level_features"
-    expand = "expand" in backbone[path[0]]
-    dw, pj = (1, 2) if expand else (0, 1)
-    sub = {"expand": "0", "depthwise": str(dw), "project": str(pj),
-           "project_bn": str(pj + 1)}[path[1]]
-    if path[1] in ("expand", "depthwise"):
-        sub += ".0" if path[2] == "conv" else ".1"
-    return f"{sect}.{i}.conv.{sub}"
+    return f"{sect}.{i}." + _inverted_residual(path[1:], "expand" in backbone[path[0]])
+
+
+def _feature_extractor(path: Tuple[str, ...], fe: Mapping) -> str:
+    """WeatherNet's backbones: the single-scale trio's ``stem[_d]/X`` →
+    ``X[_d]``, ``trunk[_d]/layerS_B`` → ``layerS[_d].B``, ``attention_*`` →
+    the conv ``.1`` of its Sequential, ``spp/X`` → ``spp.spp.X``,
+    ``upsampleI`` → ``upsample.I``; the MobileNetV2 pyramid's
+    ``ir*`` blocks as ``InvertedResidual``s; every other name (the pyramid
+    ResNets, the EfficientNet pyramid, the hourglass's ladder) in torch
+    form."""
+    top, rest = path[0], path[1:]
+    if top in ("stem", "stem_d"):
+        return rest[0] + top[len("stem"):]
+    if top in ("trunk", "trunk_d"):
+        s, b = re.fullmatch(r"layer(\d)_(\d+)", rest[0]).groups()
+        return ".".join((f"layer{s}{top[len('trunk'):]}", b)
+                        + tuple(_torch_module_name(p) for p in rest[1:]))
+    if top.startswith("attention_"):
+        return top + ".1"
+    if top == "spp":
+        return "spp.spp." + ".".join(rest)
+    m = re.fullmatch(r"upsample(\d)", top)
+    if m:
+        return f"upsample.{m.group(1)}." + ".".join(rest)
+    if re.fullmatch(r"ir\d_\d+_\d+", top):
+        return f"{top}." + _inverted_residual(rest, "expand" in fe[top])
+    return ".".join(_torch_module_name(p) for p in path)
 
 
 def _xception(path: Tuple[str, ...]) -> str:
@@ -162,6 +199,9 @@ def _module_name(path: Tuple[str, ...], params: Mapping) -> str:
     if top == "net":
         if "initial_block" in params["net"]:
             return "net." + _enet(path[1:])
+        if len(path) > 2 and path[1] == "feature_extractor":
+            return "net.feature_extractor." + _feature_extractor(
+                path[2:], params["net"]["feature_extractor"])
         return ".".join(_torch_module_name(p) for p in path)
     if top == "classifier":
         return _deeplab_head(path[1:], "project" in params["classifier"])
@@ -180,10 +220,19 @@ def _module_name(path: Tuple[str, ...], params: Mapping) -> str:
     return "backbone." + name
 
 
+def _is_transposed(path) -> bool:
+    """ENet's transposed convs, and the first conv of a ``deconv*`` step
+    (``Conv2x(deconv=True)``) of the hourglass's ladder."""
+    return (path[-1] in ("ext_tconv", "transposed_conv")
+            or (path[-2:] == ("conv1", "conv") and path[-3].startswith("deconv")))
+
+
 def _weight(path, value: np.ndarray) -> np.ndarray:
-    if path[-2:] == ("feature_extractor", "conv1"):
+    if path[-2:] == ("feature_extractor", "conv1"):   # masked: the dense 7×7
         value = stem_dense_kernel_from_s2d(value)
-    if path[-1] in ("ext_tconv", "transposed_conv"):   # un-flip, (I, O, kh, kw)
+    elif path[-1] == "stem_conv":                       # unmasked: the dense 4×4
+        value = s2d_kernel_to_dense(value)
+    if _is_transposed(path):   # un-flip, (I, O, kh, kw)
         return value[::-1, ::-1].transpose(2, 3, 0, 1)
     if value.ndim == 4:
         return value.transpose(3, 2, 0, 1)
@@ -206,7 +255,10 @@ def from_jax_variables(params: Mapping, batch_stats: Mapping) -> Dict[str, torch
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf, value in _walk(params):
         prefix = _module_name(path, layout)
-        if leaf == "kernel":
+        if leaf == "conv1_kernel":   # the MobileNetV2 pyramid's unmasked s2d stem
+            prefix, leaf = f"{prefix}.conv1", "weight"
+            value = s2d_kernel_to_dense(value).transpose(3, 2, 0, 1)
+        elif leaf == "kernel":
             value, leaf = _weight(path, value), "weight"
         elif leaf in ("scale", "alpha"):
             leaf = "weight"

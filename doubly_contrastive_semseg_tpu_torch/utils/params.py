@@ -16,6 +16,7 @@ in. SGD keeps the reference's name-filter groups (``init_trainer.py:
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Sequence
 
 import torch.nn as nn
@@ -26,8 +27,12 @@ FINE_TUNE_PREFIXES = (
 )
 
 
-def label_for_path(names: Sequence[str], cfg) -> str:
-    """The group label of the parameter whose dotted name is ``names``."""
+def label_for_path(names: Sequence[str], cfg, single_scale: bool = False) -> str:
+    """The group label of the parameter whose dotted name is ``names``.
+    JAX labels by its own module path: a single-scale SwiftNet
+    (``single_scale``) holds its stems and trunks under ``stem[_d]`` and
+    ``trunk[_d]``, names no fine-tune prefix starts, so of its modules only
+    the hourglass's ``conv1b`` is ``fine_tune``, as there."""
     top = names[0]
     sgd = cfg.optimizer_policy == "SGD"
     trained = "sgd_base" if sgd else "random_init"  # opt-in heads: lr × 1
@@ -44,6 +49,8 @@ def label_for_path(names: Sequence[str], cfg) -> str:
     if "feature_extractor" in names:
         i = names.index("feature_extractor")
         sub = names[i + 1] if i + 1 < len(names) else ""
+        if single_scale and re.fullmatch(r"(conv1|bn1|layer\d)(_d)?", sub):
+            return "random_init"
         return "fine_tune" if sub.startswith(FINE_TUNE_PREFIXES) else "random_init"
     if "segmentation" in names:
         return "random_init" if cfg.train_seg_head else "frozen"
@@ -52,8 +59,9 @@ def label_for_path(names: Sequence[str], cfg) -> str:
 
 def label_params_for_optimizer(model: nn.Module, cfg) -> Dict[str, str]:
     """{parameter name: group label} over ``model.named_parameters()``."""
-    return {name: label_for_path(name.split("."), cfg)
-            for name, _ in model.named_parameters()}
+    names = [name for name, _ in model.named_parameters()]
+    single_scale = any(n.startswith("net.feature_extractor.spp.") for n in names)
+    return {name: label_for_path(name.split("."), cfg, single_scale) for name in names}
 
 
 def count_parameters(model: nn.Module) -> int:

@@ -19,6 +19,7 @@ skipped, one of another shape is skipped with a warning.
 from __future__ import annotations
 
 import logging
+import re
 from typing import Dict
 
 import torch
@@ -33,16 +34,26 @@ def _tensors(sd: Dict) -> Dict[str, torch.Tensor]:
             if torch.is_tensor(v) and not k.endswith("num_batches_tracked")}
 
 
+# the block tensors JAX's convert_torchvision_resnet reads (torch_convert.py:75-95)
+_TRUNK = re.compile(r"layer\d\.\d+\.(conv[12]\.weight|(bn[12]|downsample\.1)\."
+                    r"(weight|bias|running_mean|running_var)|downsample\.0\.weight)$")
+
+
 def convert_torchvision_resnet(state_dict: Dict) -> Dict[str, torch.Tensor]:
     """torchvision ResNet-18/34 ``state_dict`` → the port's names: ``conv1``
     and ``layer1..4`` under ``net.feature_extractor.``, ``bn1`` fanned out to
-    ``bn1_{0,1,2}``; ``fc`` has no counterpart and is dropped."""
+    ``bn1_{0,1,2}``; the block tensors JAX reads (``conv1``, ``conv2``,
+    ``bn1``, ``bn2``, ``downsample.{0,1}``), no other. Without a
+    ``conv1.weight`` it raises ``KeyError``, as JAX's does (``sd["conv1.weight"]``,
+    ``torch_convert.py:72-73``)."""
+    if "conv1.weight" not in state_dict:
+        raise KeyError("conv1.weight")
     out: Dict[str, torch.Tensor] = {}
     for k, v in _tensors(state_dict).items():
         if k.startswith("bn1."):
             for lvl in range(3):
                 out[f"{FE}bn1_{lvl}.{k[len('bn1.'):]}"] = v
-        elif k.startswith(("conv1.", "layer")):
+        elif k == "conv1.weight" or _TRUNK.match(k):
             out[FE + k] = v
     return out
 
@@ -54,17 +65,36 @@ def convert_reference_weathernet(model_state: Dict) -> Dict[str, torch.Tensor]:
     ``net.segmentation.``."""
     fe = {k[len("feature_extractor."):]: v for k, v in _tensors(model_state).items()
           if k.startswith("feature_extractor.")}
-    if "spp.spp.spp_bn.conv.weight" in fe:
-        raise NotImplementedError("a single-scale SwiftNet checkpoint: that model family is "
-                                  "not ported yet (ROADMAP.md §1 item 4)")
-    out = convert_torchvision_resnet(fe)
-    for k, v in fe.items():
-        if k.startswith(("bn1_", "upsample_bottlenecks", "upsample_blends")):
-            out[FE + k] = v
+    if SINGLE_SCALE_KEY in fe:
+        out = convert_reference_swiftnet_single(fe)
+    else:
+        out = convert_torchvision_resnet(fe)
+        for k, v in fe.items():
+            if k.startswith(("bn1_", "upsample_bottlenecks", "upsample_blends")):
+                out[FE + k] = v
     for k, v in _tensors(model_state).items():
         if k.startswith("segmentation."):
             out["net." + k] = v
     return out
+
+
+# the single-scale SwiftNets' checkpoints hold it (JAX torch_convert.py:107)
+SINGLE_SCALE_KEY = "spp.spp.spp_bn.conv.weight"
+_SINGLE_SCALE = re.compile(
+    r"(conv1|bn1)(_d)?\.|layer[1-4](_d)?\.\d+\.(conv[12]|bn[12]|downsample\.[01])\."
+    r"|attention_[1-4](_d)?\.1\.|spp\.spp\.(spp_bn|spp[0-3]|spp_fuse)\.(conv|norm)\."
+    r"|upsample\.[0-3]\.(bottleneck|blend_conv)\.(conv|norm)\.|conv4a\.(conv|bn)\."
+    r"|(de)?conv[1-4][ab]\.conv[12]\.(conv|bn)\.")
+
+
+def convert_reference_swiftnet_single(fe: Dict) -> Dict[str, torch.Tensor]:
+    """The single-scale trio's feature extractor (``ResNet_swift``, the
+    RGB-D ``ResNet``, ``ResNet_hourglass``; keys relative to it) → the
+    port's names, which are the reference's: the tensors JAX's
+    ``convert_reference_swiftnet_single`` (``torch_convert.py:641-716``)
+    reads, under ``net.feature_extractor.``; ``conv_final``, which the
+    reference builds and never calls, is dropped as there."""
+    return {FE + k: v for k, v in fe.items() if _SINGLE_SCALE.match(k)}
 
 
 def convert_blob(blob: Dict) -> Dict[str, torch.Tensor]:
@@ -118,6 +148,14 @@ def merge_state_dict(model: torch.nn.Module, tensors: Dict[str, torch.Tensor],
 def load_pretrained(model: torch.nn.Module, path: str) -> int:
     """Loads a torchvision ResNet ``.pth`` or a reference trainer checkpoint
     onto ``model`` (``--pretrained``); returns the number of tensors
-    loaded."""
+    loaded. JAX lands a single-scale SwiftNet checkpoint on the trio's
+    ``stem``/``trunk``/``spp`` tree and any other on the pyramids' names, so
+    neither reaches the other family's feature extractor (only the seg,
+    weather and projection heads load across); where the port's names
+    coincide (the trio keeps the reference's ``conv1``, ``layer*``), the
+    feature extractor's tensors are dropped to load what JAX loads."""
     blob = torch.load(path, map_location="cpu", weights_only=False)
-    return merge_state_dict(model, convert_blob(blob), path)
+    tensors = convert_blob(blob)
+    if (FE + SINGLE_SCALE_KEY in tensors) != (FE + SINGLE_SCALE_KEY in model.state_dict()):
+        tensors = {k: v for k, v in tensors.items() if not k.startswith(FE)}
+    return merge_state_dict(model, tensors, path)

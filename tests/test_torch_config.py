@@ -3,7 +3,9 @@
 ``parse_args`` in both packages gives equal values for every shared field,
 and ``to_json`` agrees on the shared keys, at the defaults, the paper's
 recipe (``scripts/train_weather.sh``), each ``--no_*`` flag, ``--test_only``
-and datasets that change ``num_classes`` and ``data_root``. The one
+and datasets that change ``num_classes`` and ``data_root``; every model name
+passes ``check_ported`` (the six WeatherNet backbones ported last are built
+through ``main``). The one
 difference by design: the default ``data_root`` lies under the home
 directory in the port, where JAX names a fixed path; with ``--data_root``
 given they agree. Runs that need a route the port does not have raise
@@ -102,12 +104,6 @@ NOT_PORTED = {
     "kitti_2015": (["--dataset", "kitti_2015"], "§1 item 5"),
     "sceneflow": (["--dataset", "sceneflow"], "§1 item 5"),
     "synthetic disparity": (["--dataset", "synthetic", "--transfer_disparity"], "§1 item 5"),
-    "single": (["--model", "resnet18_single"], "§1 item 4"),
-    "hourglass": (["--model", "resnet18_hourglass"], "§1 item 4"),
-    "rgbd": (["--model", "resnet18_rgbd"], "§1 item 4"),
-    "back": (["--model", "resnet18_back"], "§1 item 4"),
-    "mobilenetv2": (["--model", "mobilenetv2"], "§1 item 4"),
-    "efficientnetb0": (["--model", "efficientnetb0"], "§1 item 4"),
     "tsne": (["--tsne"], "§1 item 6"),
     "grain": (["--loader", "grain"], "§1 item 2"),
     "num_devices": (["--num_devices", "2"], "§1 item 7"),
@@ -133,6 +129,42 @@ def test_check_ported_accepts_the_deeplab_family_and_enet(model):
     cfg = parse_args(argv)
     check_ported(cfg)
     assert model in PORTED_MODELS and cfg.output_stride == 8 and cfg.separable_conv
+
+
+BACKBONES = {"resnet18_single": "SingleScaleSwiftNet", "resnet18_hourglass": "HourglassSwiftNet",
+             "resnet18_rgbd": "RGBDSwiftNet", "resnet18_back": "PyramidResNetBack",
+             "mobilenetv2": "PyramidMobileNetV2", "efficientnetb0": "PyramidEfficientNet"}
+
+
+@pytest.mark.parametrize("model", list(BACKBONES))
+def test_weathernet_backbones_pass_check_ported_and_build(model, tmp_path):
+    """The six WeatherNet backbones of ``ROADMAP.md`` §1 item 4 pass
+    ``check_ported``, and ``main --device cpu`` builds each (0 epochs: the
+    ``Trainer`` alone, its model, data and run directory)."""
+    import logging
+    import signal
+
+    cfg = parse_args(["--model", model])
+    check_ported(cfg)
+    assert model in PORTED_MODELS
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    sigs = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        trainer = port_main.main(["--model", model, "--device", "cpu", "--dataset", "synthetic",
+                                  "--synthetic_size", "2", "--epochs", "0", "--num_workers", "1",
+                                  "--compute_dtype", "float32", "--no_build_summary",
+                                  "--run_root", str(tmp_path)])
+    finally:   # the trainer takes over the root logger and the signal handlers
+        for h in [h for h in root.handlers if h not in handlers]:
+            root.removeHandler(h)
+            h.close()
+        root.setLevel(level)
+        for sig, h in sigs.items():
+            signal.signal(sig, h)
+    fe = trainer.model.net.feature_extractor
+    assert type(fe).__name__ == BACKBONES[model] and not trainer.model.training
+    assert next(trainer.model.parameters()).device.type == "cpu"
 
 
 def test_clis_need_the_card_or_device_cpu(tmp_path):

@@ -77,6 +77,15 @@ GATE_FREE = ("classifier.classifier.3.weight", "classifier.classifier.3.bias",
 
 
 @pytest.fixture(scope="module", autouse=True)
+def fresh_torch_rng():
+    """Torch's global generator seeded at the start of each module: the port
+    blocks these tests build draw their initial weights from it, which this
+    torch seeds anew in every process, and which a test run before them in
+    the same worker (``main`` seeds it) leaves in another state."""
+    torch.manual_seed(0)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def few_threads():
     """Two intra-op threads: the suite runs several test processes at once,
     and torch's default of one thread a core oversubscribes the CPU."""

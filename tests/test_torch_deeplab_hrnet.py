@@ -15,7 +15,7 @@ torch = pytest.importorskip("torch")
 from doubly_contrastive_semseg_tpu.models.backbones import hrnetv2 as jhr  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.models.backbones import hrnetv2  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.utils import convert  # noqa: E402
-from test_torch_deeplab import few_threads  # noqa: E402,F401 (autouse)
+from test_torch_deeplab import few_threads, fresh_torch_rng  # noqa: E402,F401 (autouse)
 from test_torch_deeplab import check_block, check_forward  # noqa: E402
 
 

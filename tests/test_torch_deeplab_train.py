@@ -27,7 +27,7 @@ from doubly_contrastive_semseg_tpu_torch.models import deeplab  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.models.backbones import resnet  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.train import compute_loss  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.utils import convert  # noqa: E402
-from test_torch_deeplab import few_threads  # noqa: E402,F401 (autouse)
+from test_torch_deeplab import few_threads, fresh_torch_rng  # noqa: E402,F401 (autouse)
 from test_torch_deeplab import (B_TRAIN, C, CRITERION, GATE_FREE, S, TRAIN_TOL,  # noqa: E402
                                 aspp_dropout, assert_stats_match, check_block, close,
                                 dropout_masks, jax_tree_from_port, port_from_jax, port_named,

@@ -38,7 +38,7 @@ from doubly_contrastive_semseg_tpu_torch import Config, build_model, make_servin
 from doubly_contrastive_semseg_tpu_torch.models import enet  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.models.blocks import Dropout  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.utils import convert  # noqa: E402
-from test_torch_deeplab import few_threads  # noqa: E402,F401 (autouse)
+from test_torch_deeplab import few_threads, fresh_torch_rng  # noqa: E402,F401 (autouse)
 from test_torch_deeplab import (assert_same_tree, assert_stats_match, check_block,  # noqa: E402
                                 close, dropout_masks, jax_tree_from_port, port_from_jax,
                                 randomize_bn)

@@ -22,7 +22,7 @@ from doubly_contrastive_semseg_tpu.utils.torch_convert import (  # noqa: E402
     convert_reference_weathernet, jax_to_py)
 from doubly_contrastive_semseg_tpu_torch import Config, DCSSModel, build_model  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch import make_serving_fn  # noqa: E402
-from doubly_contrastive_semseg_tpu_torch.models import ProjectionHead  # noqa: E402
+from doubly_contrastive_semseg_tpu_torch.models import ProjectionHead, WeatherNet  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.ops import fused_stem_pool  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.utils import from_jax_variables  # noqa: E402
 
@@ -153,8 +153,12 @@ def test_projection_head_matches_jax(rng):
 
 
 def test_unported_backbone_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(Config(model="mobilenetv2"), device="cpu")
+    """Every WeatherNet backbone of JAX's builds; a name JAX's factory does
+    not know raises ``NotImplementedError`` naming it, as there."""
+    with pytest.raises(NotImplementedError, match="model resnet50"):
+        build_model(Config(model="resnet50"), device="cpu")
+    with pytest.raises(NotImplementedError, match="backbone resnet50"):
+        WeatherNet("resnet50")
 
 
 def test_default_model_bn_stats_match_jax_after_train_step(rng):

@@ -7,8 +7,9 @@ trainer checkpoint (``model_state`` with ``supcon_projection`` and
 models that start from the same variables: every tensor is equal, and both
 count the same tensors loaded. So do reference DeepLab and ENet trainer
 checkpoints, which JAX routes to ``convert_reference_deeplab`` and
-``convert_reference_enet``. A single-scale SwiftNet checkpoint raises
-naming ``ROADMAP.md`` §1 item 4.
+``convert_reference_enet``. Other families' checkpoints onto the flagship
+load or raise as JAX's do (the single-scale SwiftNets' own, in
+``test_torch_swiftnet_single.py``).
 """
 
 import pytest
@@ -179,12 +180,32 @@ def test_load_pretrained_deeplab_and_enet_match_jax(tmp_path, name):
     assert changed == n
 
 
-def test_other_model_families_raise(tmp_path):
-    """A single-scale SwiftNet checkpoint (its SPP decoder): that WeatherNet
-    backbone is not ported yet."""
+def test_other_model_families_raise(tmp_path, jax_start):
+    """Other families' checkpoints onto the flagship: one without
+    ``conv1.weight`` (an EfficientNet's) raises ``KeyError`` in both
+    loaders; a single-scale SwiftNet's lands, in JAX, on the trio's
+    ``stem``/``trunk``/``spp`` tree, so only its seg head reaches the
+    pyramid, in both."""
+    params, stats = jax_start
+    model = build_model(Config(compute_dtype="float32", criterion="supcon_pixelcontrast_focal"),
+                        device="cpu")
+    model.load_state_dict(from_jax_variables(params, stats), strict=True)
     path = str(tmp_path / "x.pth")
-    torch.save({"model_state": {"feature_extractor.spp.spp.spp_bn.conv.weight":
-                                torch.zeros(1)}}, path)
-    model = build_model(Config(compute_dtype="float32"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
+    torch.save({"model_state": {"feature_extractor._conv_stem.weight": torch.zeros(32, 3, 3, 3)}},
+               path)
+    with pytest.raises(KeyError, match="conv1.weight"):
+        jax_load_pretrained(params, stats, path)
+    with pytest.raises(KeyError, match="conv1.weight"):
         load_pretrained(model, path)
+    g = torch.Generator().manual_seed(5)
+    single = {"feature_extractor.spp.spp.spp_bn.conv.weight": torch.rand(128, 512, 1, 1,
+                                                                          generator=g),
+              "feature_extractor.conv1.weight": torch.rand(64, 3, 7, 7, generator=g),
+              "segmentation.conv.weight": torch.rand(19, 128, 1, 1, generator=g),
+              "segmentation.conv.bias": torch.rand(19, generator=g)}
+    torch.save({"model_state": single}, path)
+    _, _, n_jax = jax_load_pretrained(params, stats, path)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    assert load_pretrained(model, path) == n_jax == 2
+    moved = {k for k, v in model.state_dict().items() if not torch.equal(v, before[k])}
+    assert moved == {"net.segmentation.conv.weight", "net.segmentation.conv.bias"}
