@@ -31,7 +31,10 @@ values and gradients against autograd of the dense losses (phase 6); the flagshi
 doubly-contrastive train step at 768², batch 8 with two views, bf16, with
 gradient checkpointing, whose losses take the plain route as in the JAX
 package, so K3/K4 launch 0 times, plus one small f32 step on the card
-against the CPU path, whole and block by block (phase 7); and the same step
+against the CPU path, whole and block by block, each block with the CPU's
+ReLU gates forced on the card (its inputs within rounding of 0 and the
+gates the card would flip counted and logged, the unforced gradients
+logged too) (phase 7); and the same step
 at batch 216 on 96² crops, where
 pixel contrast has 8208 ≥ 8192 rows and runs through K3 and K4, against the
 same step on the plain route (phase 8).
@@ -60,19 +63,21 @@ JF's 88 launches a step) → ``make_train_step``, timed by stage, the first
 epoch generating the frames and the second finding them cached (phase
 12); and the same dataset's val split, twice, through ``DataLoader`` →
 ``make_eval_step`` with K5 on the decoder → ``Evaluator`` (phase 13). Before anything else it
-prints which of PIL, cv2 and scipy import (the port uses none of them);
-phase 4 also serves the batch in the planar and space-to-depth layouts.
+prints which of PIL, cv2 and scipy import (the port reads JPEG files and
+runs ``ColorJitter``, the flips and ``RandomAffine`` through PIL, and uses
+neither cv2 nor scipy); phase 4 also serves the batch in the planar and
+space-to-depth layouts.
 
 Then the default input path (``host_augment=True``), all of it host code:
 the times on the card's host of ``read_png`` on a 1080×1920 frame by PNG
 filter, the crop-and-scale at three box scales and the chamfer EDT weights
 of a 768² crop (phase 14, ``tools/profile_host_data.py``); three epochs of
-3 flagship steps (4 loader threads, 4, then 1) fed by the synthetic
+2 flagship steps (4 loader threads, 4, then 1) fed by the synthetic
 1024×2048 dataset through the host train transforms (768² crops, two
 views, EDT weights on the host, no kernel launched), timed by stage (phase
 15); and an ACDC tree of 1080×1920 PNGs written with ``write_png`` (every
 frame with the five filters in turns down its rows, night frames, the
-file lists), read back exactly, trained on for two epochs of 3 steps (4
+file lists), read back exactly, trained on for two epochs of 2 steps (4
 loader threads, then 1) through ``get_dataset("acdc")`` with gamma on, K2
 held to its plain version at the levels of 1920×1080 batches of 8 and 4,
 and the val split through ``make_eval_step`` into the ``Evaluator``, K2
@@ -123,8 +128,9 @@ through K1 once a batch, its labels against the plain head on the same
 features on 0.99 of the decided pixels (PR 13's rule) and, at f32, on
 0.9999 of the pixels, serving and eval frames/s (no K1, K2 or K5 launch in
 eval); the published recipe step (768², batch 8 × 2 views, bf16, no kernel),
-one small f32 step card vs CPU and its SPP (6 × 10: unequal windows) and an
-upsample step one at a time; the dense-contrast step (batch 216 on 96²), K3
+one small f32 step card vs CPU and its SPP (34 × 60, a 1080×1920 frame's
+layer 4: unequal windows) and an upsample step one at a time, the CPU's
+ReLU gates forced as in phase 7; the dense-contrast step (batch 216 on 96²), K3
 4 and K4's layout and sweep once a step, the kernel route's loss and dZ
 against the plain route's, then K3 and K4 alone at its N and D (a); each of ``resnet18_hourglass``,
 ``resnet18_rgbd``, ``resnet18_back``, ``mobilenetv2`` and ``efficientnetb0``
@@ -134,6 +140,19 @@ through K1 against the plain head (b); ``main --model resnet18_single`` for
 an epoch of 2 steps and 4 val frames, and ``inference`` on 4 PNGs of
 1080×1920 (c).
 
+Then the datasets ``main`` took last (phase 20): trees of PNGs at the real
+sizes written with ``write_png`` (Cityscapes with right frames and
+Lost&Found with its black border, 1024×2048; ACDC, 1080×1920), read back as
+written, then ``main`` at full width (``resnet18``, bf16, host crops, one
+loader thread, an epoch of 2 steps, validation at 1920×1080, K2 3 times a
+val batch) on ``cityscapes`` (a), ``acdc_city --weather_num 5`` with the
+flagship criterion and its per-weather mIoU keys 0-4 (b), ``city_lost
+--new_crop`` (``CropBlackArea``, 1024×512 crops, 20 classes), fused and
+``--not_md_fusion`` (c); the runs that read a weather these datasets lack,
+refused (d); and the inference CLI at f32 on 2 JPEGs of 1080×1920, whose
+labels equal those of the same pixels saved as PNG (e); K2 held to its
+plain version at these shapes.
+
 Any failure raises and exits non-zero; so does a machine without CUDA or a
 directory without the package. The last line is ``{"ok": true, "device":
 {...}}``; the line before it lists each kernel's launches, error and times.
@@ -141,6 +160,7 @@ directory without the package. The last line is ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -158,8 +178,8 @@ DENSE_BATCH, DENSE_CROP = 216, 96      # 216·19·2 = 8208 ≥ 8192 pixel-contra
 KERNEL_N, D_FEAT = 8192, 128
 VAL_HEIGHT, VAL_WIDTH = 1080, 1920      # the JAX default val shape (config.py:104-105)
 SYNTHETIC_HW, SYNTHETIC_SIZE = "1024x2048", 48   # crop_wh: the published 768²
-HOST_SIZE = 24                          # host-augmented synthetic: 3 steps an epoch
-ACDC_TRAIN, ACDC_VAL = 24, 12           # ACDC from PNG: 3 steps an epoch, val batches 8 + 4
+HOST_SIZE = 16                          # host-augmented synthetic: 2 steps an epoch
+ACDC_TRAIN, ACDC_VAL = 16, 12           # ACDC from PNG: 2 steps an epoch, val batches 8 + 4
 RUNTIME_SIZE, INFER_FRAMES = 16, 4      # phase 17: 2 steps an epoch, a val split of 4 frames
 DEEPLAB = "deeplabv3plus_resnet101"     # phase 18: the DeepLab family's flagship
 DEEPLAB_STEPS = 4
@@ -168,6 +188,10 @@ OTHER_CROP = 256                        # 18d, 19b: the other names' train step
 SWIFT = "resnet18_single"               # phase 19: the single-scale SwiftNet
 SWIFT_FAMILY = ("resnet18_single", "resnet18_hourglass", "resnet18_rgbd", "resnet18_back",
                 "mobilenetv2", "efficientnetb0")
+# phase 20's trees: Cityscapes and Lost&Found frames of 1024x2048, ACDC's of
+# 1080x1920 (the val frames cover the four weathers); 2 steps an epoch
+CITY_TRAIN, CITY_VAL, ACDC20_TRAIN, ACDC20_VAL, LF_TRAIN, LF_VAL = 4, 2, 2, 4, 4, 2
+JPEG_FRAMES = 2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -365,32 +389,108 @@ def rel_err(torch, got, want) -> float:
     return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
 
 
+class ReluGates:
+    """Every ``torch.relu`` of a block's forward and backward (checkpointed
+    recomputes included), in call order. ``record()`` keeps each input's
+    gate (input > 0) and counts the inputs within ``NEAR`` x max|input| of
+    0, which the card's and the CPU's rounding may put on either side;
+    ``force()`` replays the recorded gates in the same order (input x gate,
+    whose gradient passes where the recorded gate is open) and counts the
+    inputs whose own sign disagrees with it: the gates the card would have
+    flipped."""
+
+    NEAR = 1e-5
+
+    def __init__(self, torch):
+        self.torch, self.real = torch, torch.relu
+        self.gates, self.inputs, self.near, self.flips = [], 0, 0, 0
+
+    def _recording(self, x):
+        with self.torch.no_grad():
+            self.gates.append((x > 0).cpu())
+            self.inputs += x.numel()
+            self.near += int((x.abs() <= self.NEAR * x.abs().max()).sum())
+        return self.real(x)
+
+    def _forced(self, x):
+        i = self.calls
+        self.calls += 1
+        check(i < len(self.gates) and tuple(self.gates[i].shape) == tuple(x.shape),
+              f"ReLU call {i} {tuple(x.shape)} does not replay the recorded calls")
+        gate = self.gates[i].to(x.device)
+        with self.torch.no_grad():
+            self.flips += int(((x > 0) != gate).sum())
+        return x * gate.to(x.dtype)
+
+    def _patched(self, fn):
+        @contextlib.contextmanager
+        def ctx():
+            self.torch.relu = fn
+            try:
+                yield self
+            finally:
+                self.torch.relu = self.real
+        return ctx()
+
+    def record(self):
+        return self._patched(self._recording)
+
+    def force(self):
+        self.calls = 0
+        return self._patched(self._forced)
+
+
 def block_errors(torch, block, inputs, dev, gen):
     """One training-mode forward and backward of ``block`` (a CPU module) on
-    the card and on the CPU, from the same inputs and output cotangent.
-    Returns the largest error of the output, of each input's and each
-    parameter's gradient (all relative to the tensor's max) and of the BN
-    running stats."""
-    import copy
+    the CPU, recording its ReLU gates, and on the card twice, as it runs
+    and with the CPU's gates forced, from the same inputs and output
+    cotangent. Returns the forced run's largest error of the output, of
+    each input's and each parameter's gradient (all relative to the
+    tensor's max) and of the BN running stats; the unforced run's gradient
+    error; the ReLU inputs, those within rounding of 0 and the gates the
+    card flips."""
+    gates = ReluGates(torch)
+    cot = []
 
-    runs = []
-    for where in (dev, "cpu"):
+    def run(where, ctx):
         m = copy.deepcopy(block).to(where).train()
-        xs = [x.to(where).requires_grad_(True) for x in inputs]
-        y = m(*xs)
-        if not runs:
-            cot = torch.randn(y.shape, generator=gen)
-        y.backward(cot.to(where).contiguous(memory_format=torch.channels_last)
-                   if y.dim() == 4 else cot.to(where))
-        runs.append((y, [x.grad for x in xs],
-                     {k: p.grad for k, p in m.named_parameters()},
-                     {k: v for k, v in m.state_dict().items() if k.endswith("running_var")
-                      or k.endswith("running_mean")}))
-    (y_d, gx_d, gp_d, st_d), (y_c, gx_c, gp_c, st_c) = runs
-    return {"output": rel_err(torch, y_d, y_c),
-            "grads": max([rel_err(torch, g, w) for g, w in zip(gx_d, gx_c)]
-                         + [rel_err(torch, gp_d[k], gp_c[k]) for k in gp_c]),
-            "stats": max([rel_err(torch, st_d[k], st_c[k]) for k in st_c], default=0.0)}
+        xs = [x.detach().to(where, copy=True).requires_grad_(True) for x in inputs]
+        with ctx:
+            y = m(*xs)
+            if not cot:
+                cot.append(torch.randn(y.shape, generator=gen))
+            y.backward(cot[0].to(where).contiguous(memory_format=torch.channels_last)
+                       if y.dim() == 4 else cot[0].to(where))
+        return (y, [x.grad for x in xs], {k: p.grad for k, p in m.named_parameters()},
+                {k: v for k, v in m.state_dict().items() if k.endswith("running_var")
+                 or k.endswith("running_mean")})
+
+    y_c, gx_c, gp_c, st_c = run("cpu", gates.record())
+    _, gx_u, gp_u, _ = run(dev, contextlib.nullcontext())
+    y_d, gx_d, gp_d, st_d = run(dev, gates.force())
+    check(gates.calls == len(gates.gates), "the card ran fewer ReLUs than the CPU")
+
+    def grads(gx, gp):
+        return max([rel_err(torch, g, w) for g, w in zip(gx, gx_c)]
+                   + [rel_err(torch, gp[k], gp_c[k]) for k in gp_c])
+
+    return {"output": rel_err(torch, y_d, y_c), "grads": grads(gx_d, gp_d),
+            "stats": max([rel_err(torch, st_d[k], st_c[k]) for k in st_c], default=0.0),
+            "grads_unforced": grads(gx_u, gp_u), "relu_inputs": gates.inputs,
+            "near_zero": gates.near, "flips": gates.flips}
+
+
+def log_block(name, errs, what=""):
+    """Logs a block's card-vs-CPU errors and ReLU counts; holds the forced
+    run at 1e-4 (output, stats) and 1e-3 (gradients) of each max."""
+    log(f"  block {name} card vs CPU, the CPU's ReLU gates forced: output "
+        f"{errs['output']:.2e}, gradients {errs['grads']:.2e}, running stats "
+        f"{errs['stats']:.2e} of max|.| (tolerances 1e-4, 1e-3, 1e-4); unforced gradients "
+        f"{errs['grads_unforced']:.2e} (not held); ReLU inputs {errs['relu_inputs']}, within "
+        f"{ReluGates.NEAR:g} x max of 0 on the CPU {errs['near_zero']}, gates the card "
+        f"flips {errs['flips']}")
+    check(errs["output"] <= 1e-4 and errs["grads"] <= 1e-3 and errs["stats"] <= 1e-4,
+          f"{what}block {name}: the card disagrees with the CPU")
 
 
 def card_vs_cpu_phase(torch, gen, dev):
@@ -457,12 +557,7 @@ def card_vs_cpu_phase(torch, gen, dev):
              ("segmentation", model.net.segmentation, [nchw(2, 128, 16, 16)]),
              ("projection", model.projection, [torch.randn(4, 2, 128, generator=gen)]))
     for name, block, inputs in cases:
-        errs = block_errors(torch, block, inputs, dev, gen)
-        log(f"  block {name} card vs CPU: output {errs['output']:.2e}, gradients "
-            f"{errs['grads']:.2e}, running stats {errs['stats']:.2e} of max|.| "
-            f"(tolerances 1e-4, 1e-3, 1e-4)")
-        check(errs["output"] <= 1e-4 and errs["grads"] <= 1e-3 and errs["stats"] <= 1e-4,
-              f"block {name}: the card disagrees with the CPU")
+        log_block(name, block_errors(torch, block, inputs, dev, gen))
     torch.backends.cudnn.deterministic = False
 
 
@@ -1705,12 +1800,7 @@ def deeplab_train_phase(torch, dev, card, gen, reset, read):
              ("backbone.layer4.1 (dilation 2)", base.backbone.layer4[1], [nchw(4, 2048, 6, 6)]),
              ("classifier.aspp (dropout mask fixed)", base.classifier.aspp, [spread]))
     for name, block, inputs in cases:
-        errs = block_errors(torch, block, inputs, dev, gen)
-        log(f"  block {name} card vs CPU: output {errs['output']:.2e}, gradients "
-            f"{errs['grads']:.2e}, running stats {errs['stats']:.2e} of max|.| "
-            f"(tolerances 1e-4, 1e-3, 1e-4)")
-        check(errs["output"] <= 1e-4 and errs["grads"] <= 1e-3 and errs["stats"] <= 1e-4,
-              f"18a block {name}: the card disagrees with the CPU")
+        log_block(name, block_errors(torch, block, inputs, dev, gen), "18a ")
     torch.backends.cudnn.deterministic = False
     del base, results, g_gpu, g_cpu
     return {"batch": b, "ms_step": ms_step, "steady_ms": steady, "peak_gb": peak_gb}
@@ -2203,20 +2293,14 @@ def swift_train_phase(torch, dev, card, gen, reset, read):
     def nchw(*shape):
         return torch.randn(*shape, generator=gen).contiguous(memory_format=torch.channels_last)
 
-    # inputs small enough that no ReLU input lies within the two forwards'
-    # rounding of 0 (phase 7b); 6 x 10 under grids of 8 x 13, 4 x 7, 2 x 3:
-    # unequal, overlapping windows
+    # layer 4 of a 1080 x 1920 frame, 34 x 60, under grids of 8 x 14, 4 x 7,
+    # 2 x 4: unequal windows; the CPU's ReLU gates forced on the card
     fe = base.net.feature_extractor
-    spread = nchw(2, 512, 6, 10) + nchw(2, 512, 1, 1)
-    cases = (("spp (6 x 10: unequal windows)", fe.spp, [spread]),
+    spread = nchw(2, 512, 34, 60) + nchw(2, 512, 1, 1)
+    cases = (("spp (34 x 60: unequal windows)", fe.spp, [spread]),
              ("upsample.0", fe.upsample[0], [nchw(2, 128, 4, 4), nchw(2, 256, 8, 8)]))
     for name, block, inputs in cases:
-        errs = block_errors(torch, block, inputs, dev, gen)
-        log(f"  block {name} card vs CPU: output {errs['output']:.2e}, gradients "
-            f"{errs['grads']:.2e}, running stats {errs['stats']:.2e} of max|.| "
-            f"(tolerances 1e-4, 1e-3, 1e-4)")
-        check(errs["output"] <= 1e-4 and errs["grads"] <= 1e-3 and errs["stats"] <= 1e-4,
-              f"19a block {name}: the card disagrees with the CPU")
+        log_block(name, block_errors(torch, block, inputs, dev, gen), "19a ")
     torch.backends.cudnn.deterministic = False
     del base, results
     return {"ms_step": ms_step, "peak_gb": peak_gb, "times": times}
@@ -2451,6 +2535,177 @@ def swift_cli_phase(torch, dev, card, reset, read):
         expect_launches(read(), "19c main, inference")
 
 
+def new_datasets_phase(torch, dev, card, reset, read, profile_host_data, profile_stem):
+    """20. The datasets ``main`` refused until now, on trees of PNGs at the
+    real sizes written with ``write_png`` (five filters in turns down each
+    frame), at full width (``resnet18``, bf16, host crops, 1 loader thread,
+    an epoch of 2 steps, then validation at 1920x1080): ``cityscapes`` (a),
+    ``acdc_city`` with ``--weather_num 5`` and the flagship criterion, its
+    per-weather mIoU keys 0-4 (b), ``city_lost --new_crop`` (20 classes,
+    ``CropBlackArea``, 1024x512 crops) fused and ``--not_md_fusion`` (c);
+    the refusals of runs that read a weather these datasets lack (d); the
+    inference CLI on JPEGs, at f32 equal to the same pixels as PNGs (e).
+    K2 launches 3 times a val batch and an image and is held to its plain
+    version at these shapes. Returns K2's launches by run."""
+    import logging
+    import re
+    import signal
+
+    from PIL import Image
+
+    from doubly_contrastive_semseg_tpu_torch import inference as port_inference
+    from doubly_contrastive_semseg_tpu_torch.data import (ACDC_City, Cityscapes, LostFound,
+                                                          read_image, read_png, write_png)
+    from doubly_contrastive_semseg_tpu_torch.main import main as port_main
+    from doubly_contrastive_semseg_tpu_torch.metrics.evaluator import WEATHER_NAMES
+    from doubly_contrastive_semseg_tpu_torch.ops.input_pipeline import pyramid_hw
+
+    t20 = time.perf_counter()
+    k2 = {}
+    with tempfile.TemporaryDirectory() as base:
+        t0 = time.perf_counter()
+        lists = profile_host_data.write_cityscapes_tree(base, CITY_TRAIN, CITY_VAL)
+        profile_host_data.write_acdc_tree(base, ACDC20_TRAIN, ACDC20_VAL)
+        profile_host_data.write_lostfound_tree(base, LF_TRAIN, LF_VAL)
+        log(f"== 20. the new datasets through main: trees written in "
+            f"{time.perf_counter() - t0:.1f} s (Cityscapes {CITY_TRAIN} + {CITY_VAL} and "
+            f"Lost&Found {LF_TRAIN} + {LF_VAL} frames of 1024x2048, ACDC {ACDC20_TRAIN} + "
+            f"{ACDC20_VAL} of 1080x1920)")
+        img, right, ids = profile_host_data.city_frame(100)
+        s = Cityscapes(os.path.join(base, "cityscapes"), filelist_root=lists)[0]
+        check(np.array_equal(s["left"], img) and np.array_equal(s["right"], right)
+              and np.array_equal(s["label"], Cityscapes.encode_target(ids)),
+              "20: a Cityscapes sample does not read back as written")
+        img, ids = profile_host_data.lostfound_frame(200)
+        s = LostFound(os.path.join(base, "city_lost"), filelist_root=lists)[0]
+        check(np.array_equal(s["left"], img) and set(np.unique(s["label"])) == {0, 19, 255},
+              "20: a Lost&Found sample does not read back as written")
+        weathers = [r["weather"] for r in ACDC_City(os.path.join(base, "acdc_city"), mode="val",
+                                                     filelist_root=lists).samples]
+        check(sorted(set(weathers)) == [0, 1, 2, 3, 4], f"20: acdc_city val weathers {weathers}")
+
+        common = ["--train_semantic", "--data_root", base, "--filelist_root", lists,
+                  "--num_workers", "1", "--epochs", "1", "--print_freq", "1", "--summary_freq",
+                  "1", "--run_root", os.path.join(base, "runs"), "--device", dev.type]
+
+        def run(what, argv, batch):
+            reset()
+            t0 = time.perf_counter()
+            tr = port_main(argv + common + ["--batch_size", str(batch)])
+            dt = time.perf_counter() - t0
+            n_val = len(tr.val_loader)
+            expect_launches(read(), f"{what} main", k2=3 * n_val)
+            k2[what] = 3 * n_val
+            cfg = tr.cfg
+            check(cfg.model == "resnet18" and cfg.compute_dtype == "bfloat16" and cfg.host_augment
+                  and len(tr.train_loader) == 2, f"{what}: not the full-width bf16 run of 2 steps")
+            losses = scalars(tr.saver.experiment_dir, "train/total_loss_print_freq")
+            check(len(losses) == 2 and all(np.isfinite(v) for _, v in losses),
+                  f"{what}: 2 finite losses in metrics.jsonl: {losses}")
+            ((_, frames, wall),) = tr.val_times
+            log(f"  {card}: {what} main {dt:.2f} s (epoch {tr.epoch_seconds[0]:.2f} s; train "
+                f"{len(tr.train_dst)}, val {len(tr.val_dst)} frames; crops {cfg.crop_wh[0]}x"
+                f"{cfg.crop_wh[1]}, batch {batch}{' x 2 views' if cfg.use_supcon else ''}, "
+                f"{cfg.num_classes} classes); ms a step (loader wait, step): "
+                + ", ".join(f"({1e3 * s[1]:.1f}, {1e3 * s[2]:.1f})" for s in tr.step_times)
+                + f"; val {frames} frames, {frames / wall:.2f} frames/s end to end; losses "
+                + ", ".join(f"{v:.4f}" for _, v in losses))
+            return tr
+
+        tr_a = run("20a cityscapes", ["--dataset", "cityscapes", "--criterion",
+                                      "pixelcontrast_focal"], 2)
+        best = os.path.join(tr_a.saver.checkpoint_dir, "score_best_checkpoint")
+        check(os.path.exists(best), "20a: main saved no score_best_checkpoint")
+
+        tr = run("20b acdc_city", ["--dataset", "acdc_city", "--weather_num", "5",
+                                   "--criterion", CRITERION], 3)
+        with open(tr.saver.save_file_return()) as f:
+            miou = dict(re.findall(r"^mIoU in (\w+) : (\S+)$", f.read(), re.M))
+        by_id = {w: miou.get(name) for w, name in WEATHER_NAMES.items()}
+        cm = tr.evaluator.confusion_matrix_sem_weather
+        log(f"  20b per-weather mIoU in val_results.txt: "
+            + ", ".join(f"{w} ({WEATHER_NAMES[w]}) {v}" for w, v in by_id.items())
+            + "; pixels a weather " + ", ".join(f"{int(cm[w].sum())}" for w in range(5)))
+        check(tr.cfg.weather_num == 5 and all(v is not None for v in by_id.values())
+              and all(cm[w].sum() > 0 for w in range(5)),
+              "20b: val_results.txt lacks a weather's mIoU, or a weather has no pixels")
+
+        for what, extra, batch in (("20c city_lost", [], 4),
+                                   ("20c city_lost --not_md_fusion", ["--not_md_fusion"], 2)):
+            tr = run(what, ["--dataset", "city_lost", "--new_crop", "--criterion",
+                            "pixelcontrast_focal"] + extra, batch)
+            check(tr.cfg.crop_wh == (1024, 512) and tr.cfg.num_classes == 20
+                  and tr.model.net.segmentation.conv.out_channels == 20
+                  and len(tr.train_dst) == LF_TRAIN + (0 if extra else CITY_TRAIN),
+                  f"{what}: not the 20-class 1024x512 run on its samples")
+        del tr
+
+        # d. runs that read a weather label cityscapes and city_lost lack
+        for argv in (["--dataset", "cityscapes", "--criterion", CRITERION],
+                     ["--dataset", "city_lost", "--criterion", "pixelcontrast_focal",
+                      "--no_host_augment"]):
+            try:
+                port_main(argv + common + ["--batch_size", "2"])
+            except ValueError as e:
+                check("carry no 'weather'" in str(e), f"20d: {e}")
+                log(f"  20d {' '.join(argv)}: refused: {e}")
+            else:
+                raise RuntimeError(f"chip_smoke: 20d: {argv} ran without a weather label")
+
+        # e. the inference CLI on JPEGs, against the same pixels as PNGs
+        src = {k: os.path.join(base, k) for k in ("jpeg", "png", "out_jpeg", "out_png")}
+        os.makedirs(src["jpeg"])
+        os.makedirs(src["png"])
+        decode_ms = []
+        for i in range(JPEG_FRAMES):
+            frame = profile_host_data.acdc_frame(300 + i)[0]
+            jpg = os.path.join(src["jpeg"], f"frame{i}.jpg")
+            Image.fromarray(frame).save(jpg, quality=90)
+            t0 = time.perf_counter()
+            pixels = read_image(jpg)
+            decode_ms.append(1e3 * (time.perf_counter() - t0))
+            check(np.array_equal(pixels, np.asarray(Image.open(jpg).convert("RGB"))),
+                  "20e: read_image is not PIL's decode")
+            write_png(os.path.join(src["png"], f"frame{i}.png"), pixels, "adaptive")
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.deterministic = True
+        reset()
+        res = {k: port_inference.main(["--input", src[k], "--resume", best, "--compute_dtype",
+                                       "float32", "--device", dev.type, "--output_dir",
+                                       src["out_" + k]]) for k in ("jpeg", "png")}
+        torch.backends.cudnn.deterministic = False
+        expect_launches(read(), "20e inference, f32", k2=3 * 2 * JPEG_FRAMES, tc=0)
+        k2["20e inference"] = 3 * 2 * JPEG_FRAMES
+        for i in range(JPEG_FRAMES):
+            a, b = (read_png(os.path.join(src["out_" + k], f"frame{i}_pred.png"))
+                    for k in ("jpeg", "png"))
+            check(a.shape == (VAL_HEIGHT, VAL_WIDTH) and np.array_equal(a, b),
+                  f"20e: frame{i}'s f32 labels from the JPEG differ from the PNG's")
+        fwd = res["jpeg"]["forward_s"][1:]
+        log(f"  {card}: 20e inference on {JPEG_FRAMES} JPEGs of {VAL_WIDTH}x{VAL_HEIGHT}, f32: "
+            f"labels equal the same pixels' as PNGs; {len(fwd) / sum(fwd):.2f} frames/s "
+            f"(forward, first skipped); PIL decode {', '.join(f'{v:.1f}' for v in decode_ms)} ms")
+
+        def levels(b):
+            return [(b,) + pyramid_hw(VAL_HEIGHT, VAL_WIDTH, lv) for lv in range(3)]
+
+        log("  K2 at the val batches' levels (2, 4 and 6 frames at 1080x1920) and the "
+            "inference's (1) vs stem_pool_reference:")
+        profile_stem.check_routes(torch.Generator().manual_seed(20), dev, log,
+                                  shapes=levels(1) + levels(2) + levels(4) + levels(6))
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, signal.SIG_DFL if sig == signal.SIGTERM
+                          else signal.default_int_handler)
+        root = logging.getLogger()
+        for hnd in list(root.handlers):
+            root.removeHandler(hnd)
+            hnd.close()
+    torch.cuda.empty_cache()
+    log(f"  {card}: phase 20 took {time.perf_counter() - t20:.1f} s")
+    return k2
+
+
 def main() -> int:
     import torch
 
@@ -2471,7 +2726,9 @@ def main() -> int:
         print(f"chip_smoke: the port's package is not importable here: {e}",
               file=sys.stderr)
         return 1
-    log(f"== 0. host libraries importable here (the port uses none): {host_libraries()}")
+    log(f"== 0. host libraries importable here (the port reads JPEG and runs ColorJitter, "
+        f"the flips and RandomAffine through PIL, and uses neither cv2 nor scipy): "
+        f"{host_libraries()}")
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
@@ -2762,6 +3019,10 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by")})
     log(f"== 19. done in {time.perf_counter() - t19:.1f} s (recipe step {train19['ms_step']:.2f} "
         f"ms, dense step {dense19_ms:.2f} ms)")
+
+    # 20. the cityscapes, acdc_city and city_lost datasets, JPEG inference
+    kernels[0]["new_datasets_launches"] = new_datasets_phase(
+        torch, dev, card, reset, read, profile_host_data, profile_stem)
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

@@ -234,14 +234,16 @@ class Config:
 
     @property
     def crop_wh(self) -> Tuple[int, int]:
-        """The train random crop: (768, 768) for the semantic datasets
-        (reference ``dataloaders/utils.py:110-112``); for synthetic data
-        (96, 96) on frames under 768 rows and the published 768² above.
-        (JAX's city_lost 1024×512 crop waits for that dataset, ``ROADMAP.md``
-        §1 item 1c.)"""
+        """The train random crop (w, h): (768, 768) for the semantic
+        datasets (reference ``dataloaders/utils.py:110-112``), (1024, 512)
+        for ``city_lost`` under ``--new_crop`` (``dataloaders/utils.py:
+        64-66``); for synthetic data (96, 96) on frames under 768 rows and
+        the published 768² above."""
         if self.dataset == "synthetic":
             h = int(self.synthetic_hw.split("x")[0])
             return (96, 96) if h < 768 else (768, 768)
+        if self.dataset == "city_lost" and self.new_crop:
+            return (1024, 512)
         return (768, 768)
 
     @property
@@ -262,11 +264,11 @@ def check_ported(cfg: Config) -> None:
             and cfg.criterion == "none" and cfg.transfer_disparity):
         todo = f"the stereo route (dataset {cfg.dataset!r}) is ROADMAP.md §1 item 5"
     elif cfg.tsne:
-        todo = "--tsne is ROADMAP.md §1 item 6"
+        todo = "--tsne is ROADMAP.md §1 item 4 (the tools)"
     elif cfg.loader != "thread":
-        todo = f"--loader {cfg.loader} is ROADMAP.md §1 item 2 (the grain loader)"
+        todo = f"--loader {cfg.loader} is ROADMAP.md §1 item 3 (the grain loader)"
     elif cfg.num_devices is not None and cfg.num_devices > 1:
-        todo = f"--num_devices {cfg.num_devices} is ROADMAP.md §1 item 7 (multi-GPU)"
+        todo = f"--num_devices {cfg.num_devices} is ROADMAP.md §1 item 6 (multi-GPU)"
     if todo:
         raise NotImplementedError(f"not ported yet: {todo}")
 

@@ -1,6 +1,5 @@
 """Dataset and transform-pipeline factory — port of the JAX package's
-``data/factory.py`` (reference ``dataloaders/utils.py:24-193``), for the
-routes whose datasets are ported:
+``data/factory.py`` (reference ``dataloaders/utils.py:24-193``):
 
 - ``host_augment=True`` (the default): train is RandomSquareCropAndScale
   (the crop) → SetTargetSize → LabelBoundaryTransform (EDT weights) →
@@ -9,12 +8,17 @@ routes whose datasets are ported:
 - ``host_augment=False`` (on-device augmentation): train is ``ToArrays``
   alone, the crops, gamma and EDT weights run on the device
   (``data/device_augment.py``); val is FixedResize → ToArrays;
-- the datasets ``acdc`` (PNG files under ``data_root``, file lists under
-  ``filelist_root``) and ``synthetic`` (in memory).
+- ``city_lost`` takes its own pipelines whatever ``host_augment`` says, as
+  in JAX: CropBlackArea first, then the host crops (1024×512 under
+  ``--new_crop``), no gamma; val CropBlackArea → FixedResize → ToArrays;
+  ``--not_md_fusion`` keeps Lost&Found alone;
+- the datasets ``acdc``, ``acdc_city``, ``cityscapes``, ``city_lost`` (files
+  under ``data_root``, file lists under ``filelist_root``) and
+  ``synthetic`` (in memory).
 
-``acdc_city``, ``cityscapes``, ``kitti_2015``, ``kitti_mix``,
-``sceneflow`` and ``city_lost`` are ``ROADMAP.md`` §1 item 1c: asking for
-them raises ``NotImplementedError`` rather than taking another route.
+The stereo lists ``kitti_2015``, ``kitti_mix`` and ``sceneflow`` are
+``ROADMAP.md`` §1 item 5: asking for them raises ``NotImplementedError``
+rather than taking another route.
 """
 
 from __future__ import annotations
@@ -24,9 +28,13 @@ from typing import Tuple
 import numpy as np
 
 from .acdc import ACDC
+from .acdc_city import ACDC_City
+from .citylostfound import CityLostFound, LostFound
+from .cityscapes import Cityscapes
 from .synthetic import SyntheticDataset
 from .transforms import (
     Compose,
+    CropBlackArea,
     FixedResize,
     GammaCorrection,
     LabelBoundaryTransform,
@@ -41,7 +49,7 @@ from .transforms import (
 # dataset-mean fill of the crop padding (reference dataloaders/utils.py:28-30)
 MEAN_RGB = tuple(np.uint8([73.15, 82.90, 72.3]))
 
-_NOT_PORTED = ("acdc_city", "cityscapes", "kitti_2015", "kitti_mix", "sceneflow", "city_lost")
+_NOT_PORTED = ("kitti_2015", "kitti_mix", "sceneflow")
 
 
 def _train_rng(cfg, seed: int):
@@ -53,9 +61,11 @@ def _train_rng(cfg, seed: int):
     return ThreadSafeRng(np.random.default_rng(seed))
 
 
-def _host_train(cfg, crop_wh: Tuple[int, int], rng, gamma: bool):
-    """JAX's host train pipeline (``factory.py:64-71``, ``:134-143``)."""
+def _host_train(cfg, crop_wh: Tuple[int, int], rng, gamma: bool, first=()):
+    """JAX's host train pipeline (``factory.py:64-71``, ``:110-119``,
+    ``:134-143``), after the transforms ``first``."""
     tech = [
+        *first,
         RandomSquareCropAndScale(crop_wh, mean=MEAN_RGB, ignore_id=255, rng=rng),
         SetTargetSize(target_size=crop_wh,
                       target_size_feats=(crop_wh[0] // 4, crop_wh[1] // 4)),
@@ -94,6 +104,21 @@ def get_dataset(cfg, seed: int = 0):
         val_dst = ACDC(root=cfg.data_root, mode=val_mode, transform=val_t, opts=cfg,
                        filelist_root=cfg.filelist_root)
         return train_dst, val_dst
+    if cfg.dataset in ("acdc_city", "cityscapes"):
+        train_t, val_t = build_transforms(cfg, cfg.crop_wh, seed)
+        kw = dict(opts=cfg, filelist_root=cfg.filelist_root)
+        cls = ACDC_City if cfg.dataset == "acdc_city" else Cityscapes
+        return (cls(root=cfg.data_root, mode="train", transform=train_t, **kw),
+                cls(root=cfg.data_root, mode="val", transform=val_t, **kw))
+    if cfg.dataset == "city_lost":
+        train_t = _host_train(cfg, cfg.crop_wh, _train_rng(cfg, seed), gamma=False,
+                              first=[CropBlackArea()])
+        val_t = Compose([CropBlackArea(), FixedResize((cfg.val_img_width, cfg.val_img_height)),
+                         ToArrays()])
+        cls = LostFound if cfg.not_md_fusion else CityLostFound
+        kw = dict(opts=cfg, filelist_root=cfg.filelist_root)
+        return (cls(root=cfg.data_root, mode="train", transform=train_t, **kw),
+                cls(root=cfg.data_root, mode="val", transform=val_t, **kw))
     if cfg.dataset == "synthetic":
         hw = tuple(int(v) for v in cfg.synthetic_hw.split("x"))  # (h, w)
         if cfg.host_augment:
@@ -114,6 +139,6 @@ def get_dataset(cfg, seed: int = 0):
         return train_dst, val_dst
     if cfg.dataset in _NOT_PORTED:
         raise NotImplementedError(
-            f"dataset {cfg.dataset!r} is not ported yet (ROADMAP.md §1 item 1c); the port "
-            "reads 'acdc' and 'synthetic'")
+            f"dataset {cfg.dataset!r} is not ported yet: the stereo route is ROADMAP.md "
+            "§1 item 5")
     raise ValueError(f"unknown dataset {cfg.dataset}")

@@ -1,13 +1,15 @@
-"""Host-side sample transforms of the loader-fed paths — the part of the
-JAX package's ``data/transforms.py`` that the train and val pipelines of
-``data/factory.py`` use: ``Compose``, ``ThreadSafeRng``, ``ReferenceRng``,
-``TwoCropTransform``, ``RandomSquareCropAndScale``, ``SetTargetSize``,
-``LabelBoundaryTransform``, ``GammaCorrection``, ``FixedResize`` and
-``ToArrays``.
+"""Host-side sample transforms — port of the JAX package's
+``data/transforms.py``: the pipelines of ``data/factory.py`` (``Compose``,
+``ThreadSafeRng``, ``ReferenceRng``, ``TwoCropTransform``,
+``RandomSquareCropAndScale``, ``SetTargetSize``, ``LabelBoundaryTransform``,
+``GammaCorrection``, ``FixedResize``, ``ToArrays`` and city_lost's
+``CropBlackArea``) and the six that JAX exports and nothing calls
+(``ColorJitter``, ``RandomHorizontalFlip``, ``RandomVerticalFlip``,
+``RandomResizedCrop``, ``RandomAffine``, ``RandomErasing``), each drawing
+from its ``rng`` what JAX's draws, in JAX's order.
 
-Samples hold numpy arrays where JAX's hold PIL images (the card's machine
-has neither PIL nor cv2), so this module carries numpy copies of what JAX
-calls there, each bit for bit the library's:
+Samples hold numpy arrays where JAX's hold PIL images. The pipelines'
+resampling is numpy, bit for bit the library's:
 
 - Pillow's resampling (``src/libImaging/Resample.c`` and ``Geometry.c``):
   bilinear and bicubic in Pillow's 8-bit fixed point, one resampler with
@@ -15,9 +17,9 @@ calls there, each bit for bit the library's:
 - Pillow's ``Image.new`` + ``paste`` + ``crop`` as array slicing;
 - cv2's 3×3 chamfer distance transform (``data/chamfer.py``).
 
-``CropBlackArea``, ``ColorJitter``, the flips, ``RandomResizedCrop``,
-``RandomAffine`` and ``RandomErasing`` are not ported: only the
-``city_lost`` pipeline uses them (``ROADMAP.md`` §1 item 1c).
+``ColorJitter`` (``ImageEnhance``, the HSV round trip), the flips
+(``transpose``) and ``RandomAffine`` (``Image.transform``) call PIL, as JAX
+does, imported inside the call.
 """
 
 from __future__ import annotations
@@ -500,4 +502,269 @@ class ToArrays:
             out["label"] = lbl if lbl.dtype == np.uint8 else lbl.astype(np.int32)
         if "weather" in sample and sample["weather"] is not None:
             out["weather"] = np.asarray(sample["weather"], np.int32).reshape(())
+        return out
+
+
+class CropBlackArea:
+    """The fixed box (140, 30, 2030, 900), resized back to the frame's (w,
+    h): bilinear image, nearest label (JAX ``CropBlackArea``, reference
+    ``custom_transforms_acdc.py:617-648``): it takes off the black
+    rectification border of the Lost&Found frames. Pillow's ``crop`` pads
+    with zeros past the frame; the resize runs on the cropped array, whose
+    edge taps read no pixel outside the box."""
+
+    BOX = (140, 30, 2030, 900)
+
+    def __call__(self, sample: Dict) -> Dict:
+        left = np.asarray(sample["left"])
+        size = (left.shape[1], left.shape[0])
+        sample["left"] = _crop_and_scale_img(left, self.BOX, size, resize_bilinear_pil, 0)
+        if sample.get("label") is not None:
+            sample["label"] = _crop_and_scale_img(np.asarray(sample["label"]), self.BOX, size,
+                                                  resize_nearest_pil, 0)
+        return sample
+
+
+# ---- the transforms JAX exports and no pipeline calls -------------------------
+
+def _pil_apply(img, fn) -> np.ndarray:
+    """``fn`` on the PIL image of a uint8 array, back as an array."""
+    from PIL import Image
+
+    return np.asarray(fn(Image.fromarray(np.asarray(img))))
+
+
+def adjust_hue(img, hue_factor: float):
+    """torchvision's PIL ``adjust_hue`` (JAX ``stereo_transforms.py``): the
+    H channel of the uint8 HSV image rotated by ``hue_factor · 255``."""
+    from PIL import Image
+
+    if not -0.5 <= hue_factor <= 0.5:
+        raise ValueError(f"hue_factor {hue_factor} not in [-0.5, 0.5]")
+    h, s, v = img.convert("HSV").split()
+    np_h = np.array(h, dtype=np.uint8)
+    np_h += np.uint8(int(hue_factor * 255) % 256)
+    return Image.merge("HSV", (Image.fromarray(np_h, "L"), s, v)).convert(img.mode)
+
+
+class ColorJitter:
+    """Brightness, contrast, saturation and hue of the image (JAX
+    ``ColorJitter``, torchvision's PIL backend): factors U(max(0, 1 − v),
+    1 + v), hue U(−v, v), drawn in that order for the enabled ops, which
+    then run in the order of ``rng.permutation``; each saturates to uint8
+    (``ImageEnhance`` and the HSV rotation). The image comes back uint8."""
+
+    def __init__(self, brightness: float = 0.0, contrast: float = 0.0,
+                 saturation: float = 0.0, hue: float = 0.0, rng=None):
+        self.brightness = brightness
+        self.contrast = contrast
+        self.saturation = saturation
+        self.hue = hue
+        self.rng = rng or np.random.default_rng()
+
+    def _factor(self, v: float) -> float:
+        return float(self.rng.uniform(max(0.0, 1.0 - v), 1.0 + v))
+
+    def __call__(self, sample: Dict) -> Dict:
+        from PIL import ImageEnhance
+
+        ops = []
+        if self.brightness:
+            b = self._factor(self.brightness)
+            ops.append(lambda im, f=b: ImageEnhance.Brightness(im).enhance(f))
+        if self.contrast:
+            c = self._factor(self.contrast)
+            ops.append(lambda im, f=c: ImageEnhance.Contrast(im).enhance(f))
+        if self.saturation:
+            s = self._factor(self.saturation)
+            ops.append(lambda im, f=s: ImageEnhance.Color(im).enhance(f))
+        if self.hue:
+            h = float(self.rng.uniform(-self.hue, self.hue))
+            ops.append(lambda im, f=h: adjust_hue(im, f))
+        order = [int(i) for i in self.rng.permutation(len(ops))]
+
+        def jitter(im):
+            for i in order:
+                im = ops[i](im)
+            return im
+
+        img = np.clip(np.asarray(sample["left"]), 0, 255).astype(np.uint8)
+        sample["left"] = _pil_apply(img, jitter)
+        return sample
+
+
+class _RandomFlip:
+    """Image and label flipped together with probability ``p`` (one
+    ``rng.random()`` a sample), through PIL's ``transpose``."""
+
+    method = ""
+
+    def __init__(self, p: float = 0.5, rng=None):
+        self.p = p
+        self.rng = rng or np.random.default_rng()
+
+    def __call__(self, sample: Dict) -> Dict:
+        if self.rng.random() < self.p:
+            from PIL import Image
+
+            method = getattr(Image, self.method)
+            sample["left"] = _pil_apply(sample["left"], lambda im: im.transpose(method))
+            if sample.get("label") is not None:
+                sample["label"] = _pil_apply(sample["label"], lambda im: im.transpose(method))
+        return sample
+
+
+class RandomHorizontalFlip(_RandomFlip):
+    """JAX ``RandomHorizontalFlip``: left to right."""
+
+    method = "FLIP_LEFT_RIGHT"
+
+
+class RandomVerticalFlip(_RandomFlip):
+    """JAX ``RandomVerticalFlip``: top to bottom."""
+
+    method = "FLIP_TOP_BOTTOM"
+
+
+class RandomResizedCrop:
+    """A box of random area (``scale`` of the frame's) and aspect (log-
+    uniform in ``ratio``), 10 tries, then the centre crop at the nearest
+    aspect in range, resized to ``size`` (w, h): bicubic image, nearest
+    label (JAX ``RandomResizedCrop``, torchvision's)."""
+
+    def __init__(self, size, scale=(0.08, 1.0), ratio=(3. / 4., 4. / 3.), rng=None):
+        self.size = size if isinstance(size, tuple) else (size, size)
+        self.scale = scale
+        self.ratio = ratio
+        self.rng = rng or np.random.default_rng()
+
+    def _params(self, img: np.ndarray):
+        h_img, w_img = img.shape[:2]
+        area = w_img * h_img
+        for _ in range(10):
+            target_area = float(self.rng.uniform(*self.scale)) * area
+            log_ratio = (math.log(self.ratio[0]), math.log(self.ratio[1]))
+            aspect = math.exp(float(self.rng.uniform(*log_ratio)))
+            w = int(round(math.sqrt(target_area * aspect)))
+            h = int(round(math.sqrt(target_area / aspect)))
+            if 0 < w <= w_img and 0 < h <= h_img:
+                x0 = int(self.rng.integers(0, w_img - w + 1))
+                y0 = int(self.rng.integers(0, h_img - h + 1))
+                return x0, y0, w, h
+        in_ratio = w_img / h_img
+        if in_ratio < min(self.ratio):
+            w, h = w_img, int(round(w_img / min(self.ratio)))
+        elif in_ratio > max(self.ratio):
+            h, w = h_img, int(round(h_img * max(self.ratio)))
+        else:
+            w, h = w_img, h_img
+        return (w_img - w) // 2, (h_img - h) // 2, w, h
+
+    def __call__(self, sample: Dict) -> Dict:
+        left = np.asarray(sample["left"])
+        x0, y0, w, h = self._params(left)
+        out = dict(sample)
+        out["left"] = resize_bicubic_pil(left[y0:y0 + h, x0:x0 + w], self.size)
+        if sample.get("label") is not None:
+            label = np.asarray(sample["label"])
+            out["label"] = resize_nearest_pil(label[y0:y0 + h, x0:x0 + w], self.size)
+        return out
+
+
+class RandomAffine:
+    """Rotation, translation, scale and shear about the image centre (JAX
+    ``RandomAffine``: torchvision 0.4.0's centre, the corrected shear):
+    ``Image.transform(AFFINE)``, bilinear with ``fillcolor`` for the image,
+    nearest with the ignore id for the label."""
+
+    def __init__(self, degrees=0.0, translate=None, scale=None, shear=None,
+                 fillcolor=0, ignore_id: int = 255, rng=None):
+        self.degrees = (-degrees, degrees) if np.isscalar(degrees) else degrees
+        self.translate = translate
+        self.scale_range = scale
+        if np.isscalar(shear):
+            self.shear = (-shear, shear, 0.0, 0.0) if shear else None
+        elif shear is not None and len(shear) == 2:
+            self.shear = (shear[0], shear[1], 0.0, 0.0)
+        else:
+            self.shear = shear
+        self.fillcolor = fillcolor
+        self.ignore_id = ignore_id
+        self.rng = rng or np.random.default_rng()
+
+    def _matrix(self, w: int, h: int):
+        """The inverse of T·C·R·Shear·S, as JAX (and torchvision's
+        ``_get_inverse_affine_matrix``) computes it."""
+        angle = math.radians(float(self.rng.uniform(*self.degrees)))
+        if self.translate is not None:
+            max_dx, max_dy = self.translate[0] * w, self.translate[1] * h
+            tx = float(np.round(self.rng.uniform(-max_dx, max_dx)))
+            ty = float(np.round(self.rng.uniform(-max_dy, max_dy)))
+        else:
+            tx = ty = 0.0
+        s = float(self.rng.uniform(*self.scale_range)) if self.scale_range else 1.0
+        if self.shear is not None:
+            shx = math.radians(float(self.rng.uniform(*self.shear[:2])))
+            shy = math.radians(float(self.rng.uniform(*self.shear[2:])))
+        else:
+            shx = shy = 0.0
+        cx, cy = w * 0.5 + 0.5, h * 0.5 + 0.5
+        a = math.cos(angle - shy) / math.cos(shy)
+        b = -math.cos(angle - shy) * math.tan(shx) / math.cos(shy) - math.sin(angle)
+        c = math.sin(angle - shy) / math.cos(shy)
+        d = -math.sin(angle - shy) * math.tan(shx) / math.cos(shy) + math.cos(angle)
+        m00, m01, m10, m11 = d / s, -b / s, -c / s, a / s
+        return (m00, m01, m00 * (-cx - tx) + m01 * (-cy - ty) + cx,
+                m10, m11, m10 * (-cx - tx) + m11 * (-cy - ty) + cy)
+
+    def __call__(self, sample: Dict) -> Dict:
+        from PIL import Image
+
+        left = np.asarray(sample["left"])
+        h, w = left.shape[:2]
+        m = self._matrix(w, h)
+        out = dict(sample)
+        out["left"] = _pil_apply(left, lambda im: im.transform(
+            (w, h), Image.AFFINE, m, resample=Image.BILINEAR, fillcolor=self.fillcolor))
+        if sample.get("label") is not None:
+            out["label"] = _pil_apply(sample["label"], lambda im: im.transform(
+                (w, h), Image.AFFINE, m, resample=Image.NEAREST, fillcolor=self.ignore_id))
+        return out
+
+
+class RandomErasing:
+    """With probability ``p``, a rectangle of random area and aspect (10
+    tries) of the float32 image set to ``value`` (``"random"``: standard
+    normal draws); the label is left as it is (JAX ``RandomErasing``,
+    Zhong et al. 2017)."""
+
+    def __init__(self, p=0.5, scale=(0.02, 0.33), ratio=(0.3, 3.3), value=0.0, rng=None):
+        self.p = p
+        self.scale = scale
+        self.ratio = ratio
+        self.value = value
+        self.rng = rng or np.random.default_rng()
+
+    def __call__(self, sample: Dict) -> Dict:
+        if self.rng.random() >= self.p:
+            return sample
+        img = np.array(sample["left"], np.float32, copy=True)
+        h_img, w_img = img.shape[:2]
+        area = h_img * w_img
+        for _ in range(10):
+            target_area = float(self.rng.uniform(*self.scale)) * area
+            aspect = float(self.rng.uniform(*self.ratio))
+            eh = int(round(math.sqrt(target_area * aspect)))
+            ew = int(round(math.sqrt(target_area / aspect)))
+            if eh < h_img and ew < w_img:
+                y0 = int(self.rng.integers(0, h_img - eh + 1))
+                x0 = int(self.rng.integers(0, w_img - ew + 1))
+                if self.value == "random":
+                    img[y0:y0 + eh, x0:x0 + ew] = self.rng.standard_normal(
+                        (eh, ew) + img.shape[2:])
+                else:
+                    img[y0:y0 + eh, x0:x0 + ew] = self.value
+                break
+        out = dict(sample)
+        out["left"] = img
         return out

@@ -1,13 +1,14 @@
-"""Inference CLI of the port: semantic label maps of a folder of PNGs from
-a port checkpoint — the semantic branch of JAX ``inference.py:169-240``.
+"""Inference CLI of the port: semantic label maps of a folder of PNG and
+JPEG images from a port checkpoint — the semantic branch of JAX
+``inference.py:169-240``.
 
-    python -m doubly_contrastive_semseg_tpu_torch.inference --input <png|dir> \\
+    python -m doubly_contrastive_semseg_tpu_torch.inference --input <image|dir> \\
         --resume run/.../checkpoints/score_best_checkpoint --output_dir output
 
-Each image is read with ``data/png.py::read_png`` (PNG only: the card's
-machine has no PIL), resized with Pillow's bilinear filter when
-``--img_width`` and ``--img_height`` are given (``FixedResize``'s numpy
-copy), run through the eval-mode forward (the fused stem, K2, on the card)
+Each image is read with ``data/images.py::read_image`` (a PNG with
+``data/png.py::read_png``, a JPEG with PIL, as JAX reads both), resized
+with Pillow's bilinear filter when ``--img_width`` and ``--img_height`` are
+given (``FixedResize``'s numpy copy), run through the eval-mode forward (the fused stem, K2, on the card)
 and the argmax of the full-resolution logits, as JAX's inference does, and
 written with ``write_png`` as ``<stem>_pred.png`` (train ids) and, with
 ``--save_color`` (the default), ``<stem>_color.png`` (``ACDC.decode_target``).
@@ -29,7 +30,8 @@ import torch
 
 from .config import Config
 from .data.acdc import ACDC
-from .data.png import read_png, write_png
+from .data.images import read_image
+from .data.png import write_png
 from .data.transforms import resize_bilinear_pil
 from .models import build_model
 from .utils.pretrained import merge_state_dict
@@ -72,11 +74,9 @@ def list_images(root: str):
 
 
 def load_image(path: str, width: Optional[int], height: Optional[int]) -> np.ndarray:
-    """(H, W, 3) uint8 pixels of a PNG, resized bilinearly to (width,
-    height) when both are given."""
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(f"{path}: the port reads PNG files only (data/png.py)")
-    img = read_png(path, mode="RGB")
+    """(H, W, 3) uint8 pixels of a PNG or JPEG, resized bilinearly to
+    (width, height) when both are given."""
+    img = read_image(path, mode="RGB")
     if width and height:
         img = resize_bilinear_pil(img, (width, height))
     return img

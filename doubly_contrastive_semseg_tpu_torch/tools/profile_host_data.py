@@ -12,7 +12,9 @@ host train transforms on a synthetic 1080×1920 frame (``RandomSquareCropAndScal
 at box scales 0.5, 1 and 2 of the 768² crop, ``label_chamfer_distance`` and
 ``LabelBoundaryTransform`` on a 768² crop) and prints one JSON object with
 the CPU's name. ``chip_smoke.py`` phase 14 calls ``time_decode`` and
-``time_transforms``; phase 16 writes its ACDC tree with ``write_acdc_tree``.
+``time_transforms``; phase 16 writes its ACDC tree with ``write_acdc_tree``,
+phase 20 its Cityscapes and Lost&Found trees with ``write_cityscapes_tree``
+and ``write_lostfound_tree``.
 """
 
 from __future__ import annotations
@@ -35,9 +37,10 @@ from ..data.chamfer import label_chamfer_distance
 from ..data.labels import CLASSES
 from ..data.png import read_png, write_png
 from ..data.synthetic import SyntheticDataset
-from ..data.transforms import LabelBoundaryTransform, RandomSquareCropAndScale
+from ..data.transforms import CropBlackArea, LabelBoundaryTransform, RandomSquareCropAndScale
 
 ACDC_HW = (1080, 1920)
+CITY_HW = (1024, 2048)                  # Cityscapes' and Lost&Found's frames
 CROP = 768
 FILTERS = {"none": 0, "sub": 1, "up": 2, "average": 3, "paeth": 4,
            "mixed": [0, 1, 2, 3, 4] * (ACDC_HW[0] // 5), "adaptive": "adaptive"}
@@ -140,6 +143,94 @@ def check_acdc_tree(root: str, lists_root: str, hw=ACDC_HW) -> int:
                 raise RuntimeError(f"ACDC sample {rec['left']} does not read back as written")
             n += 1
     return n
+
+
+def city_frame(index: int, hw=CITY_HW) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A synthetic Cityscapes sample: left frame, right frame (the left
+    shifted by 24 columns) and labelIds, with a patch of ids past 33
+    (which clamp to the ignore id)."""
+    img, ids = acdc_frame(index, hw)
+    ids[: hw[0] // 16, : hw[1] // 16] = 255
+    return img, np.roll(img, -24, axis=1), ids
+
+
+def lostfound_frame(index: int, hw=CITY_HW) -> Tuple[np.ndarray, np.ndarray]:
+    """A synthetic Lost&Found frame and its gtCoarse labelIds: 1 (road)
+    where the synthetic frame has road, obstacle ids 2 + (train id − 11)
+    on its person-to-bicycle classes, 0 elsewhere, and black, id 0,
+    outside ``CropBlackArea``'s box (its rectification border)."""
+    img, label = SyntheticDataset(size=index + 1, image_hw=hw)._frame(index)
+    img, ids = img.copy(), np.zeros(hw, np.uint8)
+    ids[label == 0] = 1
+    obstacle = (label >= 11) & (label <= 18)
+    ids[obstacle] = 2 + label[obstacle] - 11
+    x0, y0, x1, y1 = CropBlackArea.BOX
+    border = np.ones(hw, bool)
+    border[y0:y1, x0:x1] = False
+    img[border], ids[border] = 0, 0
+    return img, ids
+
+
+def _write_tree(base: str, sub: str, jobs, lists: Dict[str, List[str]]) -> str:
+    """Writes ``jobs`` ((path under ``<base>/<sub>``, array, filter), ...)
+    four at a time, and the lists as ``<base>/filenames/<name>.txt``;
+    returns the lists' root."""
+    def write(job) -> None:
+        rel, arr, filt = job
+        path = os.path.join(base, sub, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_png(path, arr, filt)
+
+    with ThreadPoolExecutor(4) as pool:          # zlib releases the GIL
+        list(pool.map(write, jobs))
+    lists_root = os.path.join(base, "filenames")
+    for name, lines in lists.items():
+        os.makedirs(os.path.dirname(os.path.join(lists_root, name)), exist_ok=True)
+        with open(os.path.join(lists_root, name + ".txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return lists_root
+
+
+def write_cityscapes_tree(base: str, n_train: int, n_val: int, hw=CITY_HW) -> str:
+    """A Cityscapes-layout tree under ``<base>/cityscapes``:
+    ``leftImg8bit``, ``rightImg8bit`` and ``gtFine`` labelIds of
+    ``city_frame`` (frames with the five PNG filters in turns down their
+    rows, labels with Pillow's choice), and the lists
+    ``<base>/filenames/cityscapes/cityscapes_semantic_{train,val}.txt``
+    (``left right disparity labelIds``; no disparity file is written).
+    Returns the lists' root."""
+    jobs, lists = [], {}
+    for split, n, offset in (("train", n_train, 100), ("val", n_val, 100 + n_train)):
+        for k in range(n):
+            i = offset + k
+            stem = f"{split}/aachen/aachen_{i:06d}_000019"
+            left, right = f"leftImg8bit/{stem}_leftImg8bit.png", f"rightImg8bit/{stem}_rightImg8bit.png"
+            gt = f"gtFine/{stem}_gtFine_labelIds.png"
+            img, img_r, ids = city_frame(i, hw)
+            rows = ([0, 1, 2, 3, 4] * (hw[0] // 5 + 1))[:hw[0]]
+            jobs += [(left, img, rows), (right, img_r, rows), (gt, ids, "adaptive")]
+            lists.setdefault(f"cityscapes/cityscapes_semantic_{split}", []).append(
+                f"{left} {right} disparity/{stem}_disparity.png {gt}")
+    return _write_tree(base, "cityscapes", jobs, lists)
+
+
+def write_lostfound_tree(base: str, n_train: int, n_val: int, hw=CITY_HW) -> str:
+    """A Lost&Found-layout tree under ``<base>/city_lost``: ``leftImg8bit``
+    frames and ``gtCoarse`` labelIds of ``lostfound_frame``, and the lists
+    ``<base>/filenames/city_lost/lostfound_{train,val}.txt`` (``left right
+    disparity labelIds``). Returns the lists' root."""
+    jobs, lists = [], {}
+    for split, n, offset in (("train", n_train, 200), ("val", n_val, 200 + n_train)):
+        for k in range(n):
+            i = offset + k
+            stem = f"{split}/04_Maurener_Weg_8/04_Maurener_Weg_8_{i:06d}_{i:06d}"
+            left, gt = f"leftImg8bit/{stem}_leftImg8bit.png", f"gtCoarse/{stem}_gtCoarse_labelIds.png"
+            img, ids = lostfound_frame(i, hw)
+            rows = ([0, 1, 2, 3, 4] * (hw[0] // 5 + 1))[:hw[0]]
+            jobs += [(left, img, rows), (gt, ids, "adaptive")]
+            lists.setdefault(f"city_lost/lostfound_{split}", []).append(
+                f"{left} rightImg8bit/{stem}_rightImg8bit.png disparity/{stem}_disparity.png {gt}")
+    return _write_tree(base, "city_lost", jobs, lists)
 
 
 def _median_ms(fn, repeats: int = 3) -> float:

@@ -25,6 +25,27 @@ from .state import TrainState
 
 # datasets with a weather label, whose head is monitored (JAX steps.py:49)
 WEATHER_DATASETS = ("acdc", "acdc_city", "synthetic")
+# criteria whose SupCon loss takes the weather as its labels (JAX
+# losses/combine.py:90,102,118)
+WEATHER_CRITERIA = ("supcon_focal", "supcon_pixelcontrast_focal", "supcon_crossentropy")
+
+
+def check_weather(cfg) -> None:
+    """Raises ``ValueError`` for training that reads a weather label the
+    dataset's samples do not carry (``cityscapes``, ``city_lost``): a
+    criterion of ``WEATHER_CRITERIA``, or ``--no_host_augment``, whose
+    device augmentation takes the weather for its gamma. JAX fails on the
+    same runs, with ``KeyError: 'weather'`` at the first step."""
+    if cfg.dataset in WEATHER_DATASETS:
+        return
+    readers = []
+    if cfg.criterion in WEATHER_CRITERIA:
+        readers.append(f"--criterion {cfg.criterion} (its SupCon labels)")
+    if not cfg.host_augment:
+        readers.append("--no_host_augment (the device augmentation's gamma)")
+    if readers:
+        raise ValueError(f"dataset {cfg.dataset!r}: its samples carry no 'weather', which "
+                         f"{' and '.join(readers)} reads")
 
 
 def ingest_batch(batch: Dict) -> Dict:

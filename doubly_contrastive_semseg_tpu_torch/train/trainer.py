@@ -39,7 +39,7 @@ from ..utils import Saver, SummaryWriter, count_parameters, load_pretrained, set
 from .checkpoints import CheckpointManager
 from .optimizer import build_lr_schedule, build_optimizer
 from .state import TrainState
-from .steps import init_eval_accum, make_eval_step, make_train_step
+from .steps import check_weather, init_eval_accum, make_eval_step, make_train_step
 
 
 def keyed_generator(device: torch.device, seed: int, step: int) -> torch.Generator:
@@ -172,6 +172,7 @@ class Trainer:
     # ----------------------------------------------------------------- train
     def train(self) -> None:
         cfg = self.cfg
+        check_weather(cfg)
         logging.info("training...")
         if cfg.trace and self.cur_epochs == cfg.start_epoch:
             # --trace: a torch.profiler trace of the first epoch

@@ -261,12 +261,13 @@ def test_get_dataset_synthetic_matches_jax():
 
 
 def test_get_dataset_raises_for_routes_not_ported():
-    """The datasets not ported raise, naming ROADMAP item 1c, with either
-    augmentation route; ``acdc`` and ``synthetic`` are ported with both
-    (``tests/test_torch_acdc.py``, ``tests/test_torch_transforms.py``)."""
-    for name in ("acdc_city", "cityscapes", "kitti_2015", "kitti_mix", "sceneflow", "city_lost"):
+    """The stereo datasets raise, naming ROADMAP item 5, with either
+    augmentation route; the semantic datasets are ported with both
+    (``tests/test_torch_acdc.py``, ``tests/test_torch_transforms.py``,
+    ``tests/test_torch_datasets_city.py``)."""
+    for name in ("kitti_2015", "kitti_mix", "sceneflow"):
         for host_augment in (True, False):
-            with pytest.raises(NotImplementedError, match="1c"):
+            with pytest.raises(NotImplementedError, match="§1 item 5"):
                 get_dataset(Config(dataset=name, host_augment=host_augment))
     with pytest.raises(ValueError, match="unknown dataset"):
         get_dataset(Config(dataset="nowhere", host_augment=False))

@@ -7,7 +7,9 @@ port checkpoint; JAX's model, holding the same weights (through its
 from), takes the argmax of its full-resolution logits as JAX's
 ``inference.py`` does. ``_pred.png`` equals JAX's labels and
 ``_color.png`` JAX's ``ACDC.decode_target`` of them, at the native size
-and resized with Pillow's bilinear filter (``--img_width/--img_height``).
+and resized with Pillow's bilinear filter (``--img_width/--img_height``),
+and so do the labels of the same frames saved as JPEG, which both read
+through PIL.
 """
 
 import os
@@ -113,6 +115,34 @@ def test_no_color_and_png_only(setup, tmp_path):
     assert result["paths"] == [str(out / "frame0_pred.png")]
     assert os.listdir(out) == ["frame0_pred.png"]
     jpg = tmp_path / "frame.jpg"
-    jpg.write_bytes(b"not read")
-    with pytest.raises(NotImplementedError, match="PNG files only"):
+    jpg.write_bytes(b"not an image")
+    with pytest.raises(ValueError, match="frame.jpg: PIL cannot identify"):
         main(["--input", str(jpg), "--output_dir", str(out), "--device", "cpu"])
+
+
+def test_jpeg_matches_jax(setup, tmp_path):
+    """A JPEG goes through PIL, as in JAX's ``inference.py``: the labels
+    equal JAX's on the same decoded pixels, at the native size and resized."""
+    base, frames, ckpt, jmodel, variables = setup
+    src = tmp_path / "in"
+    src.mkdir()
+    for i, img in enumerate(frames):
+        Image.fromarray(img).save(src / f"frame{i}.{'jpg' if i else 'jpeg'}", quality=85)
+    for size in (None, (80, 48)):
+        out = tmp_path / f"out_{size}"
+        argv = ["--input", str(src), "--resume", ckpt, "--output_dir", str(out),
+                "--compute_dtype", "float32", "--device", "cpu", "--no-save_color"]
+        if size:
+            argv += ["--img_width", str(size[0]), "--img_height", str(size[1])]
+        assert len(main(argv)["paths"]) == 2
+        for i in range(2):
+            img = Image.open(src / f"frame{i}.{'jpg' if i else 'jpeg'}").convert("RGB")
+            if size:
+                img = img.resize(size, Image.BILINEAR)
+            assert not np.array_equal(np.asarray(img), frames[i])     # lossy: JPEG's own pixels
+            logits = jmodel.apply(variables, jnp.asarray(np.asarray(img), jnp.float32)[None],
+                                  train=False)["seg"]
+            want = np.array(jnp.argmax(logits, axis=-1).astype(jnp.int32))[0]
+            assert len(np.unique(want)) >= 2
+            np.testing.assert_array_equal(read_png(str(out / f"frame{i}_pred.png")),
+                                          want.astype(np.uint8))
