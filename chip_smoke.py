@@ -63,10 +63,11 @@ JF's 88 launches a step) → ``make_train_step``, timed by stage, the first
 epoch generating the frames and the second finding them cached (phase
 12); and the same dataset's val split, twice, through ``DataLoader`` →
 ``make_eval_step`` with K5 on the decoder → ``Evaluator`` (phase 13). Before anything else it
-prints which of PIL, cv2 and scipy import (the port reads JPEG files and
-runs ``ColorJitter``, the flips and ``RandomAffine`` through PIL, and uses
-neither cv2 nor scipy); phase 4 also serves the batch in the planar and
-space-to-depth layouts.
+prints which of PIL, cv2, scipy, sklearn, matplotlib, visdom and grain
+import (the port reads JPEG files and runs ``ColorJitter``, the flips and
+``RandomAffine`` through PIL, draws with sklearn and matplotlib, and uses
+neither cv2, scipy nor grain); phase 4 also serves the batch in the planar
+and space-to-depth layouts.
 
 Then the default input path (``host_augment=True``), all of it host code:
 the times on the card's host of ``read_png`` on a 1080×1920 frame by PNG
@@ -152,6 +153,23 @@ flagship criterion and its per-weather mIoU keys 0-4 (b), ``city_lost
 refused (d); and the inference CLI at f32 on 2 JPEGs of 1080×1920, whose
 labels equal those of the same pixels saved as PNG (e); K2 held to its
 plain version at these shapes.
+
+Last, the grain loader and the tools (phase 21): ``main --loader grain
+--no_host_augment`` at full width (synthetic 1024×2048 frames, 768² crops
+on the card, ``main``'s batch 8 × 2 views, bf16, 2 epochs of 4 steps) in
+process, the same run as a subprocess SIGKILLed once its third step has
+logged (``--rescue_interval 2``), and the resume from its rescue
+checkpoint: the rescue is mid-epoch at ``num_iter`` 2, the resume trains
+epoch 0's last 2 steps and epoch 1's 4 on exactly the uninterrupted run's
+samples, JF 88 times a step, within stated tolerances of its losses and
+parameters (a); ``main --tsne`` on the flagship over 48 whole frames,
+image mode, K2 3 times a batch, ``tsne.png`` (or, without sklearn or
+matplotlib, ``run`` raising ``ImportError`` naming it), the feature pass in
+both modes and one batch's features card vs CPU at f32 (b);
+``model_complexity`` of the flagship at 768² and the EDT visualizer's PNGs
+(c). Phase 0 also says whether sklearn, matplotlib, visdom and grain
+import there, each in a fresh interpreter (the port needs none of them to
+train).
 
 Any failure raises and exits non-zero; so does a machine without CUDA or a
 directory without the package. The last line is ``{"ok": true, "device":
@@ -865,15 +883,20 @@ def eval_phase(torch, gen, dev):
     return eval_launches
 
 
-def host_libraries() -> str:
-    """Which of PIL, cv2 and scipy import here, each tried in a fresh
-    interpreter so that none of them loads into this one."""
-    code = ("import importlib, json\nok = {}\nfor m in ('PIL', 'cv2', 'scipy'):\n"
-            "    try:\n        importlib.import_module(m)\n        ok[m] = True\n"
-            "    except Exception:\n        ok[m] = False\nprint(json.dumps(ok))")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=120)
-    return out.stdout.strip() or f"unknown ({out.stderr.strip()[-200:]})"
+HOST_LIBRARIES = ("PIL", "cv2", "scipy", "sklearn", "matplotlib", "visdom", "grain")
+
+
+def host_libraries() -> dict:
+    """Which of ``HOST_LIBRARIES`` import here, each tried in a fresh
+    interpreter of its own so that none of them loads into this one (or
+    into another's try): {name: True, or the error's last line}."""
+    ok = {}
+    for m in HOST_LIBRARIES:
+        out = subprocess.run([sys.executable, "-c", f"import {m}"], capture_output=True,
+                             text=True, timeout=120)
+        err = out.stderr.strip().splitlines()
+        ok[m] = True if out.returncode == 0 else (err[-1][:160] if err else f"exit {out.returncode}")
+    return ok
 
 
 def s2d_pack(x):
@@ -2706,6 +2729,273 @@ def new_datasets_phase(torch, dev, card, reset, read, profile_host_data, profile
     return k2
 
 
+GRAIN_SIZE = 32                        # 21a: 4 steps of main's batch 8 an epoch
+TSNE_SIZE = 48                         # 21b: 6 batches of 8, 48 image features
+ADAM_STEP_BOUND = 0.1 / 0.001 ** 0.5   # |Adam update| <= lr (1 - b1) / sqrt(1 - b2)
+
+
+def grain_tools_phase(torch, dev, card, reset, read, libs):
+    """21. The grain loader's mid-epoch position and the tools, through
+    ``main`` at full width (synthetic 1024x2048 frames, the flagship,
+    ``main``'s batch 8, bf16): (a) ``--loader grain --no_host_augment
+    --rescue_interval 2`` for 2 epochs of 4 steps in process, the same run
+    as a subprocess SIGKILLed once its third step has logged, and the resume
+    from its rescue checkpoint in process: the rescue is mid-epoch at
+    num_iter 2, the resume trains epoch 0's last 2 steps then epoch 1's 4 on
+    exactly the uninterrupted run's samples, JF 88 times a step, and ends
+    within the stated tolerances of the uninterrupted run's losses and
+    parameters; (b) ``main --tsne`` (image mode, 48 frames): K2 3 times a
+    batch, ``tsne.png`` where sklearn and matplotlib import (else ``run``
+    must raise ``ImportError`` naming the missing one, and the feature pass
+    runs in both modes), one batch's features card vs CPU at f32; (c)
+    ``model_complexity`` of the flagship at 768² and the EDT visualizer's
+    PNGs. Returns K2's and JF's launches and the times."""
+    import logging
+    import signal
+
+    from doubly_contrastive_semseg_tpu_torch import Config, build_model
+    from doubly_contrastive_semseg_tpu_torch import visualize_balancing_weight as edt_viz
+    from doubly_contrastive_semseg_tpu_torch.config import parse_args
+    from doubly_contrastive_semseg_tpu_torch.main import main as port_main
+    from doubly_contrastive_semseg_tpu_torch.ops import edt
+    from doubly_contrastive_semseg_tpu_torch.tools.tsne import Viz
+    from doubly_contrastive_semseg_tpu_torch.utils.complexity import model_complexity
+
+    t21, out = time.perf_counter(), {}
+    per_step = len(edt.jfa_launches(TRAIN_CROP, TRAIN_CROP))
+    with tempfile.TemporaryDirectory() as base:
+        grain = ["--dataset", "synthetic", "--synthetic_hw", SYNTHETIC_HW, "--synthetic_size",
+                 str(GRAIN_SIZE), "--train_semantic", "--criterion", CRITERION,
+                 "--loader", "grain", "--no_host_augment", "--epochs", "2", "--print_freq", "1",
+                 "--summary_freq", "1", "--run_root", base, "--device", dev.type]
+        cfg = parse_args(grain)
+        check(cfg.batch_size == TRAIN_BATCH and cfg.compute_dtype == "bfloat16"
+              and cfg.model == "resnet18" and cfg.crop_wh == (TRAIN_CROP, TRAIN_CROP),
+              "phase 21a must run main's defaults at full width")
+        log(f"== 21a. main --loader grain --no_host_augment: synthetic {SYNTHETIC_HW} "
+            f"({GRAIN_SIZE} train frames: 4 steps an epoch, {cfg.num_workers} loader threads), "
+            f"{TRAIN_CROP}² crops on the card, batch {TRAIN_BATCH} x 2 views, bf16, {CRITERION}, "
+            "2 epochs; uninterrupted in process, then SIGKILLed in a subprocess after its third "
+            "step (--rescue_interval 2), then resumed in process")
+        reset()
+        t0 = time.perf_counter()
+        full = port_main(grain + ["--checkname", "full"])
+        full_s = time.perf_counter() - t0
+        launches = read()
+        n_full = len(full.step_times)
+        check(n_full == 8, f"21a: the uninterrupted run took {n_full} steps, not 8")
+        expect_launches(launches, "21a uninterrupted, 8 steps", k2=3 * len(full.val_loader) * 2,
+                        jf=per_step * n_full)
+        out["jf_uninterrupted"] = launches["nearest_diff_label_distance"]
+        log(f"  {card}: 21a uninterrupted: {full_s:.2f} s; ms a step (loader wait, step): "
+            + ", ".join(f"({1e3 * w:.1f}, {1e3 * t:.1f})" for _, w, t in full.step_times))
+        out["grain_steps_ms"] = [1e3 * t for _, _, t in full.step_times]
+
+        repo = os.path.dirname(os.path.abspath(__file__))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "doubly_contrastive_semseg_tpu_torch.main", *grain,
+             "--rescue_interval", "2", "--checkname", "killed"],
+            cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")})
+        lines, t_start, killed = [], time.perf_counter(), False
+        try:
+            for line in proc.stdout:
+                lines.append(line)
+                if "][  3/  4]" in line:          # step 3 logged: the rescue at 2 is written
+                    proc.send_signal(signal.SIGKILL)
+                    killed = True
+                    break
+                check(time.perf_counter() - t_start < 240, "21a: the subprocess's third step "
+                      "did not come within 240 s: " + "".join(lines[-10:]))
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+        check(killed and proc.returncode == -signal.SIGKILL,
+              f"21a: the subprocess must die of SIGKILL after step 3 (exit {proc.returncode}): "
+              + "".join(lines[-20:]))
+        (killed_run,) = [dp for dp, _, fn in os.walk(os.path.join(base, "synthetic", "killed"))
+                         if "args.json" in fn]
+        rescue = os.path.join(killed_run, "checkpoints", "rescue_checkpoint")
+        with open(rescue + ".meta.json") as f:
+            rmeta = json.load(f)
+        with open(rescue + ".loader_state", "rb") as f:
+            position = json.loads(f.read())
+        log(f"  21a subprocess SIGKILLed {time.perf_counter() - t_start:.1f} s after its start; "
+            f"rescue meta {rmeta}; loader state last_seen_indices "
+            f"{position['last_seen_indices']}, worker_count {position['worker_count']}")
+        check(rmeta["mid_epoch"] is True and rmeta["num_iter"] == 2 and rmeta["epoch"] == 0,
+              f"21a: the rescue must be mid-epoch 0 at num_iter 2: {rmeta}")
+
+        reset()
+        t0 = time.perf_counter()
+        res = port_main(grain + ["--checkname", "resumed", "--resume", rescue,
+                                 "--continue_training", "--rescue_interval", "2"])
+        res_s = time.perf_counter() - t0
+        launches = read()
+        n_res = len(res.step_times)
+        expect_launches(launches, f"21a resumed, {n_res} steps", k2=3 * len(res.val_loader) * 2,
+                        jf=per_step * n_res)
+        out["jf_resumed"] = launches["nearest_diff_label_distance"]
+        ep0 = [s for s in res.step_samples if s[0] == 0]
+        check(len(ep0) == 2 and n_res == 6, f"21a: the resume must train epoch 0's 2 remaining "
+              f"steps and epoch 1's 4, not {len(ep0)} and {n_res - len(ep0)}")
+        check(res.step_samples == full.step_samples[2:],
+              "21a: the resumed run's samples differ from the uninterrupted run's: "
+              f"{res.step_samples} vs {full.step_samples[2:]}")
+        log(f"  21a resumed: {res_s:.2f} s, {n_res} steps; samples of every step equal the "
+            f"uninterrupted run's steps 3-8 (epoch 0: {ep0})")
+
+        tag = "train/total_loss_print_freq"
+        want = dict(scalars(full.saver.experiment_dir, tag))
+        got = dict(scalars(res.saver.experiment_dir, tag))
+        check(sorted(got) == list(range(3, 9)), f"21a: the resumed run logs num_iter {sorted(got)}")
+        loss_err = max(abs(got[k] - want[k]) / abs(want[k]) for k in got)
+        lr = max(g["base_lr"] for g in full.optimizer.param_groups)
+        bound = 2 * ADAM_STEP_BOUND * lr * n_full
+        sd_f, sd_r = full.model.state_dict(), res.model.state_dict()
+        trained = {n for n, p in full.model.named_parameters() if p.requires_grad}
+        p_err = max((sd_f[k].float() - sd_r[k].float()).abs().max().item() for k in trained)
+        buf_err = max(((sd_f[k].float() - sd_r[k].float()).norm()
+                       / sd_f[k].float().norm().clamp_min(1e-12)).item()
+                      for k in sd_f if k not in trained and sd_f[k].is_floating_point())
+        log(f"  21a resumed vs uninterrupted: losses of updates 3-8 max rel diff {loss_err:.3e} "
+            f"(bar 5e-2); parameters max abs diff {p_err:.3e} (bar {bound:.3e}); BN statistics "
+            f"max rel L2 diff {buf_err:.3e} (bar 0.25)")
+        # not bits: cuDNN tunes (benchmark) in each process and the card's
+        # atomics order sums differently, so the runs part after the first
+        # update. An Adam update moves a parameter by at most lr (1 - b1) /
+        # sqrt(1 - b2) = 3.16 lr (Kingma & Ba, sec. 2.1), so two runs that
+        # part at update 1 end at most 2 x 3.16 lr x 8 apart; their losses,
+        # bf16 (2^-8 a rounding), stay within a few % where a step on other
+        # samples or another crop moves them by the spread between steps.
+        # The BN running statistics fold in every step's batch moments, so
+        # they carry the parameters' drift: the bar is a sanity bound, 8x
+        # the 3.1e-2 that the same runs gave on the CPU (bf16, 4 threads).
+        check(loss_err <= 5e-2 and p_err <= bound and buf_err <= 0.25,
+              "21a: the resumed run strays from the uninterrupted one")
+        del full, res, sd_f, sd_r
+
+        # b. main --tsne, image mode (a SupCon criterion), on the flagship; the
+        # whole frames (--no_host_augment): host crops in two views would give
+        # 2B features for B weathers, which JAX's run() and the port's refuse
+        tsne = ["--dataset", "synthetic", "--synthetic_hw", SYNTHETIC_HW, "--synthetic_size",
+                str(TSNE_SIZE), "--criterion", CRITERION, "--no_host_augment", "--tsne",
+                "--run_root", base, "--checkname", "tsne", "--device", dev.type]
+        have = libs.get("sklearn") is True and libs.get("matplotlib") is True
+        log(f"== 21b. main --tsne: synthetic {SYNTHETIC_HW} whole, {TSNE_SIZE} frames in batches of "
+            f"{TRAIN_BATCH}, flagship bf16, image mode; sklearn and matplotlib "
+            f"{'import' if have else 'do not both import'} here")
+        reset()
+        t0 = time.perf_counter()
+        if have:
+            viz = port_main(tsne)
+            tsne_s = time.perf_counter() - t0
+            png = os.path.join(viz.saver.experiment_dir, "tsne.png")
+            check(os.path.isfile(png) and os.path.getsize(png) > 0, "21b: no tsne.png")
+            log(f"  {card}: 21b main --tsne {tsne_s:.2f} s end to end; {png} "
+                f"{os.path.getsize(png)} bytes")
+        else:
+            viz = Viz(parse_args(tsne), device=dev)
+            try:
+                viz.run()
+            except ImportError as e:
+                check(e.name in ("sklearn", "matplotlib") and libs.get(e.name) is not True,
+                      f"21b: run() raised ImportError for {e.name!r}: {e}")
+                log(f"  21b run() raised ImportError naming {e.name!r}, as phase 0 found")
+            else:
+                check(False, "21b: run() must raise ImportError without sklearn or matplotlib")
+            viz.get_features(mode="image")        # the pass run() would have made
+        n_batches = min(16, len(viz.loader))
+        launches = read()
+        expect_launches(launches, f"21b main --tsne, {n_batches} batches", k2=3 * n_batches)
+        out["k2_tsne"] = launches["fused_stem_pool"]
+        for mode in ("image", "pixel"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats, labels = viz.get_features(mode=mode)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            check(np.isfinite(feats).all() and feats.shape[1] == 128
+                  and len(labels) == len(feats) and len(feats) > 0,
+                  f"21b: {mode} features {feats.shape}")
+            log(f"  {card}: 21b get_features({mode}): {feats.shape[0]} features of "
+                f"{feats.shape[1]} in {dt:.2f} s ({n_batches * TRAIN_BATCH / dt:.2f} frames/s "
+                "with the loader)")
+            if mode == "image" and have:
+                from sklearn.manifold import TSNE
+                t0 = time.perf_counter()
+                TSNE(n_components=2, init="pca",
+                     perplexity=min(30, max(2, len(feats) // 4))).fit_transform(feats)
+                out["tsne_s"] = time.perf_counter() - t0
+                log(f"  21b sklearn t-SNE over {len(feats)} features: {out['tsne_s']:.2f} s "
+                    "on the host")
+        # one batch (its first 2 frames: the CPU's share), card vs CPU at f32
+        batch = next(iter(viz.loader))
+        x = torch.as_tensor(batch["left"][:2]).float()
+        f32 = Config(compute_dtype="float32", criterion=CRITERION)
+        card32 = build_model(f32, device=dev)
+        card32.load_state_dict(viz.model.state_dict())
+        cpu32 = build_model(f32, device="cpu")
+        cpu32.load_state_dict({k: v.cpu() for k, v in viz.model.state_dict().items()})
+        torch.backends.cudnn.benchmark = False     # its f32 algorithms err more
+        with torch.no_grad():
+            fc = card32(x.to(dev))["fine_feat0"].float().cpu()
+            fh = cpu32(x)["fine_feat0"].float()
+        torch.backends.cudnn.benchmark = True
+        scale = fh.abs().max().item()
+        pix_err = (fc - fh).abs().max().item() / scale
+        img_err = (fc.mean((1, 2)) - fh.mean((1, 2))).abs().max().item() / scale
+        log(f"  21b fine_feat0 of 2 frames at f32, card vs CPU: per-image means max abs err "
+            f"{img_err:.3e} of max|f| (bar 1e-4), pixels {pix_err:.3e} (bar 1e-2: a ReLU gate "
+            "within rounding of 0 may flip)")
+        check(img_err <= 1e-4 and pix_err <= 1e-2, "21b: the card's features disagree with the "
+              "CPU's")
+        del viz, card32, cpu32, fc, fh
+
+        # c. model_complexity at 768² and the EDT visualizer
+        log("== 21c. model_complexity of the flagship (bf16) at 768² on the card; the EDT "
+            "visualizer")
+        model = build_model(Config(), device=dev)
+        t0 = time.perf_counter()
+        cx = model_complexity(model, (1, TRAIN_CROP, TRAIN_CROP, 3), device=dev)
+        log(f"  {card}: 21c model_complexity {json.dumps(cx)} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        check(abs(cx["params_m"] * 1e6 - sum(p.numel() for p in model.parameters())) < 1
+              and cx["flops_g"] > 0 and cx["bytes_accessed_g"] > 0, "21c: model_complexity")
+        out["complexity"] = cx
+        del model
+        edt_argv = ["--dataset", "synthetic", "--synthetic_hw", SYNTHETIC_HW, "--synthetic_size",
+                    "16", "--train_semantic", "--run_root", os.path.join(base, "edt")]
+        t0 = time.perf_counter()
+        if libs.get("matplotlib") is True:
+            paths = edt_viz.main(edt_argv)
+            check(len(paths) == 8 and all(os.path.getsize(p) > 0 for p in paths),
+                  f"21c: EDT visualizer PNGs {paths}")
+            log(f"  21c EDT visualizer: {len(paths)} PNGs ("
+                + ", ".join(str(os.path.getsize(p)) for p in paths) + f" bytes) in "
+                f"{time.perf_counter() - t0:.2f} s")
+        else:
+            panels = edt_viz.edt_panels(parse_args(edt_argv))
+            check(len(panels) == 8 and all(np.isfinite(w).all() for _, _, w in panels),
+                  "21c: EDT panels")
+            log(f"  21c EDT visualizer: no matplotlib, {len(panels)} panels' arrays computed")
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, signal.SIG_DFL if sig == signal.SIGTERM
+                          else signal.default_int_handler)
+        root = logging.getLogger()
+        for hnd in list(root.handlers):
+            root.removeHandler(hnd)
+            hnd.close()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t21
+    log(f"  {card}: phase 21 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2726,9 +3016,12 @@ def main() -> int:
         print(f"chip_smoke: the port's package is not importable here: {e}",
               file=sys.stderr)
         return 1
-    log(f"== 0. host libraries importable here (the port reads JPEG and runs ColorJitter, "
-        f"the flips and RandomAffine through PIL, and uses neither cv2 nor scipy): "
-        f"{host_libraries()}")
+    libs = host_libraries()
+    log(f"== 0. host libraries importable here, each in a fresh interpreter (the port reads "
+        f"JPEG and runs ColorJitter, the flips and RandomAffine through PIL, draws the t-SNE "
+        f"with sklearn and matplotlib and the EDT panels with matplotlib, uses visdom where "
+        f"it answers, and uses neither cv2, scipy nor grain; training needs none of them): "
+        f"{json.dumps(libs)}")
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
@@ -3023,6 +3316,12 @@ def main() -> int:
     # 20. the cityscapes, acdc_city and city_lost datasets, JPEG inference
     kernels[0]["new_datasets_launches"] = new_datasets_phase(
         torch, dev, card, reset, read, profile_host_data, profile_stem)
+
+    # 21. the grain loader's mid-epoch position and the tools
+    p21 = grain_tools_phase(torch, dev, card, reset, read, libs)
+    kernels[0]["tsne_launches"] = p21["k2_tsne"]
+    kernels[-1]["grain_launches"] = {"uninterrupted": p21["jf_uninterrupted"],
+                                     "resumed": p21["jf_resumed"]}
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

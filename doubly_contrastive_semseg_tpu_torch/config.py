@@ -263,10 +263,6 @@ def check_ported(cfg: Config) -> None:
             cfg.dataset == "synthetic" and not cfg.train_semantic
             and cfg.criterion == "none" and cfg.transfer_disparity):
         todo = f"the stereo route (dataset {cfg.dataset!r}) is ROADMAP.md §1 item 5"
-    elif cfg.tsne:
-        todo = "--tsne is ROADMAP.md §1 item 4 (the tools)"
-    elif cfg.loader != "thread":
-        todo = f"--loader {cfg.loader} is ROADMAP.md §1 item 3 (the grain loader)"
     elif cfg.num_devices is not None and cfg.num_devices > 1:
         todo = f"--num_devices {cfg.num_devices} is ROADMAP.md §1 item 6 (multi-GPU)"
     if todo:

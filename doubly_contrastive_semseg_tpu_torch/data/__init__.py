@@ -5,6 +5,7 @@ from .citylostfound import CityLostFound, LostFound
 from .cityscapes import Cityscapes
 from .device_augment import apply_augment, augment_batch, sample_crop_params
 from .factory import build_transforms, get_dataset
+from .grain_loader import GrainDataLoader, make_loader
 from .images import read_image
 from .labels import TRAIN_ID_TO_COLOR, WEATHER_DICT
 from .loader import DataLoader, collate, to_device

@@ -100,7 +100,11 @@ class DataLoader:
         return batches
 
     def __iter__(self) -> Iterator[Dict]:
-        batches = self._batch_indices()
+        return self._iter_batches(self._batch_indices())
+
+    def _iter_batches(self, batches: List[np.ndarray]) -> Iterator[Dict]:
+        """Collated batches of the samples at ``batches``' indices, in
+        order, read by the thread pool."""
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
         err: List[BaseException] = []

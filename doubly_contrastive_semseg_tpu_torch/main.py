@@ -1,13 +1,15 @@
 """Training CLI of the port — JAX ``main.py:15-63`` at world size 1:
 seed, build the ``Trainer``, then the epoch loop train → validate from
-``cur_epochs`` to ``--epochs``; ``--test_only`` runs one validation pass.
+``cur_epochs`` to ``--epochs``; ``--test_only`` runs one validation pass;
+``--tsne`` renders the t-SNE of the model's features
+(``tools/tsne.py::Viz``) and trains nothing.
 
     python -m doubly_contrastive_semseg_tpu_torch.main --dataset synthetic \\
         --train_semantic --criterion supcon_pixelcontrast_focal --epochs 1 \\
         --batch_size 2 --debug --device cpu
 
 Runs on the card unless ``--device cpu`` is given; with ``cuda`` and no
-card it raises. The stereo datasets and ``--tsne`` raise
+card it raises. The stereo route and ``--num_devices`` above 1 raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` items
 (``config.py::check_ported``, called by the ``Trainer``).
 """
@@ -17,20 +19,26 @@ from __future__ import annotations
 import logging
 import sys
 import time
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 
 from .config import parse_args
+from .tools.tsne import Viz
 from .train import Trainer
 from .utils import seed_all_rng
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Trainer:
+def main(argv: Optional[Sequence[str]] = None) -> Union[Trainer, Viz]:
     """Runs the CLI on ``argv`` (``sys.argv[1:]`` when None) and returns the
-    trainer."""
+    trainer (under ``--tsne`` the ``Viz``)."""
     cfg = parse_args(argv)
     seed_all_rng(cfg.random_seed)
+
+    if cfg.tsne:
+        viz = Viz(cfg, device=cfg.device)
+        viz.run()
+        return viz
 
     if cfg.test_only and cfg.resume is None and not cfg.pretrained:
         raise RuntimeError("--test_only requires --resume or --pretrained")

@@ -1,1 +1,2 @@
-"""Measurement tools of the port that run on the card."""
+"""The port's tools: ``tsne`` (``main --tsne``, JAX ``tools/tsne.py``) and the
+measurement tools that run on the card (``profile_*``, ``*_variants``)."""

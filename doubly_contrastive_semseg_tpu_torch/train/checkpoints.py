@@ -7,13 +7,19 @@ when the val mIoU improves, ``rescue_checkpoint`` on SIGTERM/SIGINT and
 every ``--rescue_interval`` steps, each as one file under ``checkpoints/``
 holding the model ``state_dict``, the optimizer ``state_dict`` (its groups
 keep ``label``, ``base_lr`` and ``steps_per_epoch``), ``step`` and the
-meta, with JAX's ``<name>.meta.json`` sidecar beside it. A file is written
-under a temporary name and moved into place with ``os.replace``, so a kill
-during a save leaves the previous checkpoint whole.
+meta, with JAX's ``<name>.meta.json`` sidecar beside it. A save given a
+loader position (``--loader grain``'s ``get_state()`` bytes) is a mid-epoch
+checkpoint: the payload holds the position, ``mid_epoch`` is true and JAX's
+``<name>.loader_state`` sidecar holds the same bytes; a save without one
+removes that sidecar. A file is written under a temporary name and moved
+into place with ``os.replace``, so a kill during a save leaves the previous
+checkpoint whole, and the position taken on restore is the payload's, which
+was written with the weights it belongs to.
 
 Restore merges the weights and BN statistics by name and shape (the
 ``strict=False`` analogue of JAX's merge by path) and takes the optimizer
-state and ``step`` only with ``continue_training``.
+state, ``step`` and the loader position (``meta["loader_state"]``) only
+with ``continue_training``.
 """
 
 from __future__ import annotations
@@ -33,8 +39,8 @@ from .state import TrainState
 def _meta(epoch: int, step: int, score: Optional[Dict], best_score: float,
           best_score_epoch: int, mid_epoch: bool = False) -> Dict:
     """JAX ``checkpoints.py::_meta``'s keys and values. ``mid_epoch`` marks
-    a checkpoint that resumes inside its epoch, which needs a loader
-    position; the threaded loader has none, so the port writes False."""
+    a checkpoint that resumes inside its epoch: one saved with a loader
+    position."""
     return {
         "epoch": int(epoch),
         "num_iter": int(step),
@@ -69,18 +75,26 @@ class CheckpointManager:
         return os.path.join(self.directory, name)
 
     def save(self, name: str, state: TrainState, epoch: int, score: Optional[Dict] = None,
-             best_score: float = 0.0, best_score_epoch: int = -1) -> str:
-        """Writes ``<name>`` and ``<name>.meta.json``; returns the path. CUDA
+             best_score: float = 0.0, best_score_epoch: int = -1,
+             loader_state: Optional[bytes] = None) -> str:
+        """Writes ``<name>``, ``<name>.meta.json`` and, given a loader
+        position, ``<name>.loader_state`` (removed otherwise: a stale
+        mid-epoch position of an earlier rescue); returns the path. CUDA
         tensors are read from the card as the payload is serialised."""
-        meta = _meta(epoch, state.step, score, best_score, best_score_epoch)
+        meta = _meta(epoch, state.step, score, best_score, best_score_epoch,
+                     mid_epoch=loader_state is not None)
         payload = {"model": state.model.state_dict(),
                    "optimizer": state.optimizer.state_dict(),
-                   "step": int(state.step), "meta": meta}
+                   "step": int(state.step), "meta": meta, "loader_state": loader_state}
         buf = io.BytesIO()
         torch.save(payload, buf)
         path = self.path(name)
         atomic_write(path, buf.getvalue())
         atomic_write(path + ".meta.json", json.dumps(meta).encode())
+        if loader_state is not None:
+            atomic_write(path + ".loader_state", loader_state)
+        elif os.path.exists(path + ".loader_state"):
+            os.remove(path + ".loader_state")
         return path
 
     @staticmethod
@@ -106,5 +120,8 @@ class CheckpointManager:
                 logging.warning("optimizer state of %s does not fit this optimizer (%s); "
                                 "keeping a fresh one", path, e)
             state.step = int(blob["step"])
-        return state, dict(blob.get("meta", {}))
+        meta = dict(blob.get("meta", {}))
+        if continue_training and blob.get("loader_state") is not None:
+            meta["loader_state"] = blob["loader_state"]
+        return state, meta
 

@@ -2,19 +2,23 @@
 package's ``train/trainer.py`` (reference ``trainer.py:27-666``,
 ``utils/init_trainer.py:21-324``), at world size 1.
 
-Init order as in JAX: saver → datasets and the threaded ``DataLoader`` →
-class weights → model → optimizer → ``--pretrained`` → checkpoint restore →
-steps → summary writer → the signal rescue. The loops run eagerly on
-``device`` (the card unless the caller asks for the CPU); the eval
-accumulators stay on the device until the end of the pass.
+Init order as in JAX: saver → datasets and the loaders (``--loader``: the
+threaded ``DataLoader`` or ``GrainDataLoader``) → class weights → model →
+optimizer → ``--pretrained`` → checkpoint restore → steps → summary writer
+→ the signal rescue. The loops run eagerly on ``device`` (the card unless
+the caller asks for the CPU); the eval accumulators stay on the device
+until the end of the pass.
 
 Random draws are keyed so that a resumed run replays them: the
 pixel-contrast anchors of update ``step`` come from a generator seeded by
 ``(random_seed, step)``, as JAX's ``fold_in(rng, step)``, and with
 ``--no_host_augment`` the crops of that update from one seeded by
-``(random_seed + 1, step)``. (JAX keys its crops by ``num_iter``, which a
-resume sets one past the saved step, so JAX's resumed draws are not its
-uninterrupted run's; the port keys both by the update.)
+``(random_seed + 1, step)``. (JAX keys its crops by ``num_iter``, which an
+epoch-boundary resume sets one past the saved step, so JAX's resumed draws
+are not its uninterrupted run's; the port keys both by the update.) With
+``--loader grain`` a rescue checkpoint also holds the loader's position, and
+a resume from it continues the same epoch at the next batch, the samples
+and (with ``--no_host_augment``) the draws those of the uninterrupted run.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import numpy as np
 import torch
 
 from ..config import Config, check_ported
-from ..data import DataLoader, augment_batch, get_dataset, to_device
+from ..data import augment_batch, get_dataset, make_loader, to_device
 from ..data.png import write_png
 from ..data.transforms import blend_pil, thumbnail_pil
 from ..data.weights import load_or_compute_class_weights
@@ -63,11 +67,11 @@ class Trainer:
 
         # --- data (init_trainer.py:79-95)
         self.train_dst, self.val_dst = get_dataset(cfg, seed=cfg.random_seed)
-        self.train_loader = DataLoader(self.train_dst, cfg.batch_size, shuffle=cfg.shuffle,
-                                       num_workers=cfg.num_workers, drop_last=True,
-                                       seed=cfg.random_seed)
-        self.val_loader = DataLoader(self.val_dst, cfg.val_batch_size, shuffle=False,
-                                     num_workers=cfg.num_workers)
+        self.train_loader = make_loader(cfg.loader, self.train_dst, cfg.batch_size,
+                                        shuffle=cfg.shuffle, num_workers=cfg.num_workers,
+                                        drop_last=True, seed=cfg.random_seed)
+        self.val_loader = make_loader(cfg.loader, self.val_dst, cfg.val_batch_size,
+                                      shuffle=False, num_workers=cfg.num_workers)
         logging.info("Dataset: %s, Train set: %d, Val set: %d",
                      cfg.dataset, len(self.train_dst), len(self.val_dst))
 
@@ -108,12 +112,24 @@ class Trainer:
             self.state, meta = self.ckpt.restore(cfg.resume, self.state,
                                                  continue_training=cfg.continue_training)
             if cfg.continue_training:
-                # JAX trainer.py:124-129: the next epoch, and the reference's
-                # checkpoint['num_iter'] + 1 (init_trainer.py:254); a rescue
-                # checkpoint resumes at the next epoch too, since the
-                # threaded loader keeps no position (mid_epoch is False)
-                self.cur_epochs = int(meta.get("epoch", -1)) + 1
-                self.num_iter = int(meta.get("num_iter", 0)) + 1
+                if meta.get("mid_epoch") and meta.get("loader_state") is not None \
+                        and hasattr(self.train_loader, "set_state"):
+                    # JAX trainer.py:113-123: a rescue taken mid-epoch with
+                    # --loader grain continues the same epoch at the saved
+                    # position, and num_iter at the saved count (the loop
+                    # pre-increments, so the next update logs as saved + 1)
+                    self.cur_epochs = int(meta.get("epoch", 0))
+                    self.train_loader.set_state(meta["loader_state"])
+                    self.num_iter = int(meta.get("num_iter", 0))
+                    logging.info("mid-epoch loader position restored "
+                                 "(epoch %d resumes at the saved batch)", self.cur_epochs)
+                else:
+                    # JAX trainer.py:124-129: the next epoch, and the
+                    # reference's checkpoint['num_iter'] + 1
+                    # (init_trainer.py:254); so does a rescue of the threaded
+                    # loader, which keeps no position (mid_epoch is False)
+                    self.cur_epochs = int(meta.get("epoch", -1)) + 1
+                    self.num_iter = int(meta.get("num_iter", 0)) + 1
                 self.best_score = float(meta.get("best_score", 0.0))
                 self.best_score_epoch = int(meta.get("best_score_epoch", -1))
                 logging.info("Training state restored from %s (epoch %d)",
@@ -136,6 +152,7 @@ class Trainer:
         # per train step (epoch, loader wait s, step s to its end, the print
         # boundary's sync included); per val pass (epoch, frames, wall s)
         self.step_times: list = []
+        self.step_samples: list = []      # per train step (epoch, its samples' left_name)
         self.val_times: list = []
         self.epoch_seconds: list = []     # main's train + validate, each epoch
 
@@ -162,12 +179,18 @@ class Trainer:
 
     def _write_rescue(self) -> None:
         """``rescue_checkpoint``: the train state at the last finished
-        update. The threaded loader has no position, so a resume starts the
-        next epoch (JAX's rule for a checkpoint without a loader state)."""
+        update and, with ``--loader grain``, the loader's position (the
+        batches handed to the steps so far), from which a resume continues
+        the epoch. The threaded loader has no position, so its resume starts
+        the next epoch (JAX's rule for a checkpoint without a loader
+        state)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        loader_state = None
+        if hasattr(self.train_loader, "get_state"):
+            loader_state = self.train_loader.get_state()
         self.ckpt.save("rescue_checkpoint", self.state, self.cur_epochs, None,
-                       self.best_score, self.best_score_epoch)
+                       self.best_score, self.best_score_epoch, loader_state=loader_state)
 
     # ----------------------------------------------------------------- train
     def train(self) -> None:
@@ -233,14 +256,16 @@ class Trainer:
                     self._write_loss_summaries(metrics)
 
                 # periodic rescue: a SIGKILL loses at most rescue_interval
-                # updates (the resume starts the next epoch); skipped at the
-                # epoch's end, whose save supersedes it
+                # updates (the resume continues the epoch under --loader
+                # grain, else starts the next); skipped at the epoch's end,
+                # whose save supersedes it
                 if cfg.rescue_interval > 0 and i + 1 < num_img_tr \
                         and self.num_iter % cfg.rescue_interval == 0:
                     self._write_rescue()
 
                 last_data_time = time.time()
                 self.step_times.append((self.cur_epochs, wait, last_data_time - step_start))
+                self.step_samples.append((self.cur_epochs, list(batch.get("left_name", ()))))
         finally:
             batches.close()   # stops the loader's threads on any exit
 

@@ -104,8 +104,6 @@ NOT_PORTED = {
     "kitti_2015": (["--dataset", "kitti_2015"], "§1 item 5"),
     "sceneflow": (["--dataset", "sceneflow"], "§1 item 5"),
     "synthetic disparity": (["--dataset", "synthetic", "--transfer_disparity"], "§1 item 5"),
-    "tsne": (["--tsne"], "§1 item 4"),
-    "grain": (["--loader", "grain"], "§1 item 3"),
     "num_devices": (["--num_devices", "2"], "§1 item 6"),
 }
 

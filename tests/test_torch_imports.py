@@ -1,6 +1,7 @@
 """The port imports no JAX: in a fresh interpreter whose import system
-refuses ``jax``, ``jaxlib``, ``flax`` and the JAX package
-``doubly_contrastive_semseg_tpu``, every module of
+refuses ``jax``, ``jaxlib``, ``flax``, the JAX package
+``doubly_contrastive_semseg_tpu`` and ``grain`` (which ``--loader grain``
+replaces), every module of
 ``doubly_contrastive_semseg_tpu_torch`` imports, and so does every module
 that ``chip_smoke.py`` imports (at its top and inside its functions);
 afterwards none of the refused packages is loaded."""
@@ -16,7 +17,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = "doubly_contrastive_semseg_tpu_torch"
-REFUSED = ("jax", "jaxlib", "flax", "doubly_contrastive_semseg_tpu")
+REFUSED = ("jax", "jaxlib", "flax", "doubly_contrastive_semseg_tpu", "grain")
 
 GUARD = r"""
 import importlib, importlib.abc, json, sys
