@@ -171,6 +171,21 @@ both modes and one batch's features card vs CPU at f32 (b);
 import there, each in a fresh interpreter (the port needs none of them to
 train).
 
+Then stereo serving (phase 22): ``StereoDCSS`` at the JAX package's stereo
+benchmark configuration (resnet18 trunk over both views, the correlation
+volume at max_disp 192, adaptive aggregation with the window deformable
+convs, soft-argmin, the ``disp_sem`` ``SemRefine`` head, 2048×1024, batch 2,
+bf16; random weights with BN and the offset convs randomised) through
+``build_stereo_model`` and ``make_stereo_serving_fn``, on NHWC and s2d
+input: K2 4 times a batch (3 trunk levels, the refinement's stem) and K1
+once, against the same weights with the plain stem and head on the card,
+frames/s with ``bench.py``'s protocol and the peak memory (a); at f32 and
+256×512 the card's CUDA-core routes against the CPU (b); the gather form
+of the deformable convs against the window form at full width, the
+offsets inside the window, with both times (c); ``inference --stereo`` on
+two 375×1242 pairs padded to 384×1248 at f32 and bf16, its 16-bit PNGs
+read back and held to the same forward in process (d).
+
 Any failure raises and exits non-zero; so does a machine without CUDA or a
 directory without the package. The last line is ``{"ok": true, "device":
 {...}}``; the line before it lists each kernel's launches, error and times.
@@ -210,6 +225,13 @@ SWIFT_FAMILY = ("resnet18_single", "resnet18_hourglass", "resnet18_rgbd", "resne
 # 1080x1920 (the val frames cover the four weathers); 2 steps an epoch
 CITY_TRAIN, CITY_VAL, ACDC20_TRAIN, ACDC20_VAL, LF_TRAIN, LF_VAL = 4, 2, 2, 4, 4, 2
 JPEG_FRAMES = 2
+# phase 22: the JAX package's stereo benchmark (scripts/bench_stereo.py:33-47, 59-61, 82):
+# StereoDCSS, resnet18, max_disp 192, adaptive aggregation (window), disp_sem, 2 x 2048x1024
+STEREO_BATCH, STEREO_MAX_DISP, STEREO_SHIFT = 2, 192, 24
+STEREO_SMALL = (256, 512)               # 22b: f32, the card's kernel routes vs the CPU
+KITTI_HW, KITTI_PAD = (375, 1242), (384, 1248)   # 22d: KITTI frames, padded as JAX pads them
+OFFSET_STD = 0.12                       # 22: random offset convs, offsets well inside ±2 px
+STEREO_DISP_BAR = 1.0                   # 22a, 22c: mean |Δdisparity| bar, pixels
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2168,6 +2190,7 @@ def swift_serving_phase(torch, dev, card, gen, reset, read):
     torch.cuda.synchronize()
     got = read()
     log(f"  one serving batch: launches {got}")
+    k1_batch = got["fused_seghead_upsample_argmax"]
     check(got["fused_seghead_upsample_argmax"] == 1 and
           all(v == 0 for k, v in got.items() if k != "fused_seghead_upsample_argmax"),
           "19a: a serving batch must launch K1 once and nothing else")
@@ -2237,7 +2260,8 @@ def swift_serving_phase(torch, dev, card, gen, reset, read):
           "19a: K1's f32 labels disagree with the plain head's")
     del model, x, feat, labels
     torch.cuda.empty_cache()
-    return {"k1_bf16": k1_bf16, "k1_f32": k1_f32, "k1_ms": k1_ms, "serve_fps": rates["serve"],
+    return {"k1_bf16": k1_bf16, "k1_f32": k1_f32, "k1_ms": k1_ms, "k1_batch": k1_batch,
+            "serve_fps": rates["serve"],
             "eval_fps": rates["eval"]}
 
 
@@ -2996,6 +3020,354 @@ def grain_tools_phase(torch, dev, card, reset, read, libs):
     return out
 
 
+def stereo_pair(torch, gen, b, h, w):
+    """(left, right) uint8 NHWC on the CPU: noise, the right view the left
+    shifted ``STEREO_SHIFT`` columns (disparity 24) with fresh noise where
+    it has no match."""
+    left = torch.randint(0, 256, (b, h, w, 3), generator=gen, dtype=torch.uint8)
+    right = torch.randint(0, 256, (b, h, w, 3), generator=gen, dtype=torch.uint8)
+    right[:, :, :w - STEREO_SHIFT] = left[:, :, STEREO_SHIFT:]
+    return left, right
+
+
+def randomize_offsets(torch, model, gen) -> None:
+    """Small random offset (and mask) convs from ``gen``: the deformable
+    samples move, well inside the window form's ±2 px."""
+    from doubly_contrastive_semseg_tpu_torch.ops.deform_conv import DeformConv2d
+
+    for m in model.modules():
+        if isinstance(m, DeformConv2d):
+            with torch.no_grad():
+                for t in (m.offset_conv.weight, m.offset_conv.bias):
+                    t.copy_(torch.randn(t.shape, generator=gen) * OFFSET_STD)
+
+
+class OffsetProbe:
+    """Records max |offset| and the share of offsets of 0.05 px or more at
+    each deformable conv's call, and its input."""
+
+    def __init__(self, model):
+        from doubly_contrastive_semseg_tpu_torch.ops.deform_conv import ModulatedDeformConv
+
+        self.max, self.moving, self.inputs = 0.0, [], []
+        self.handles = [m.register_forward_hook(self._hook) for m in model.modules()
+                        if isinstance(m, ModulatedDeformConv)]
+
+    def _hook(self, module, args, out):
+        x, offset = args[0], args[1]
+        self.max = max(self.max, offset.abs().max().item())
+        self.moving.append((offset.abs() >= 0.05).float().mean().item())
+        self.inputs.append((module, x, args[1], args[2]))
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def disp_gap(a, b):
+    d = (a.float() - b.float()).abs()
+    return d.mean().item(), d.max().item()
+
+
+def stereo_phase(torch, dev, card, reset, read):
+    """22. Stereo serving of ``StereoDCSS`` at the JAX stereo benchmark's
+    configuration (module docstring): (a) 2048×1024 × 2 bf16, NHWC and s2d,
+    K2 4 and K1 1 launches a batch on their tensor-core routes, against
+    the plain stem and head (labels 0.99 on the decided pixels of
+    ``decided_agreement``; mean |Δdisp| ``STEREO_DISP_BAR`` px), frames/s
+    and peak memory; (b) f32 ``STEREO_SMALL`` card vs CPU
+    (CUDA-core routes; disparity 1e-3 of max, labels 0.999); (c) gather vs
+    window at full width with offsets inside ±2 px: the disparity
+    (``STEREO_DISP_BAR``), each deformable conv on its own inputs at f32
+    (1e-4 of max), both times; (d) ``inference --stereo`` at f32 and bf16 on two
+    ``KITTI_HW`` pairs padded to ``KITTI_PAD``: K2 3 a pair, the PNGs read
+    back exactly, within 1 LSB of the forward in process on 0.999 of the
+    pixels. Returns the launches and times for the kernels line."""
+    from doubly_contrastive_semseg_tpu_torch import build_stereo_model, make_stereo_serving_fn
+    from doubly_contrastive_semseg_tpu_torch import inference as port_inference
+    from doubly_contrastive_semseg_tpu_torch.data.png import read_png, write_png
+    from doubly_contrastive_semseg_tpu_torch.models.stereo_extras import SemRefine
+    from doubly_contrastive_semseg_tpu_torch.ops import seghead, stem
+
+    t22 = time.perf_counter()
+    gen = torch.Generator().manual_seed(22)
+    kw = dict(max_disp=STEREO_MAX_DISP, refinement_type="disp_sem", deform_impl="window",
+              train_semantic=True, backbone="resnet18")
+    out = {}
+    head_fn = seghead.fused_seghead_upsample_argmax
+
+    def reset22():
+        reset()
+        head_fn.tc_launches = head_fn.cc_launches = 0
+
+    log(f"== 22a. stereo serving: StereoDCSS resnet18, max_disp {STEREO_MAX_DISP}, adaptive "
+        f"aggregation (window), disp_sem, {WIDTH}x{HEIGHT}, batch {STEREO_BATCH}, bf16")
+    torch.backends.cudnn.benchmark = True
+    model = build_stereo_model(device="cpu", seed=22, dtype="bfloat16", **kw)
+    randomize_bn(model, gen)
+    randomize_offsets(torch, model, gen)
+    agg = model.aggregation
+    check(len(agg.fusions) == 3 and agg.final_conv[0].out_channels == STEREO_MAX_DISP // 4
+          and sum(type(f.branches[0][0]).__name__ == "DeformSimpleBottleneck"
+                  for f in agg.fusions) == 2 and isinstance(model.refinement, SemRefine)
+          and model.segmentation.conv.out_channels == 19,
+          "22a: 3 fusions (2 deformable) over 48 disparities, SemRefine, 19 classes")
+    model.to(dev)
+    serve = make_stereo_serving_fn(model, device=dev)
+    left, right = (v.to(dev) for v in stereo_pair(torch, gen, STEREO_BATCH, HEIGHT, WIDTH))
+    probe = OffsetProbe(model)
+    results = {}
+    for layout, (xl, xr) in (("NHWC", (left, right)),
+                             ("s2d", (s2d_pack(left), s2d_pack(right)))):
+        reset22()
+        disp, labels = serve(xl, xr)
+        torch.cuda.synchronize()
+        got = read()
+        got["k1_tc"] = head_fn.tc_launches
+        results[layout] = (disp, labels)
+        if layout == "NHWC":
+            out["launches_a"] = got
+        log(f"  {layout} {tuple(xl.shape)}: disparity {tuple(disp.shape)} {disp.dtype} in "
+            f"[{disp.min().item():.3f}, {disp.max().item():.3f}], labels {tuple(labels.shape)} "
+            f"{labels.dtype}; launches {got}")
+        check(got["fused_stem_pool"] == 4 and got["fused_stem_pool_tc"] == 4
+              and got["fused_seghead_upsample_argmax"] == 1
+              and got["k1_tc"] == 1
+              and all(v == 0 for k, v in got.items() if k not in (
+                  "fused_stem_pool", "fused_stem_pool_tc", "fused_seghead_upsample_argmax",
+                  "k1_tc")),
+              f"22a: a stereo serving batch ({layout}) must launch K2 4 times and K1 once, "
+              f"on tensor cores, and nothing else")
+        check(disp.shape == labels.shape == (STEREO_BATCH, HEIGHT, WIDTH)
+              and disp.dtype == torch.float32 and labels.dtype == torch.int8
+              and torch.isfinite(disp).all().item() and 0 <= labels.min().item()
+              and labels.max().item() < 19, f"22a: outputs ({layout})")
+    probe.remove()
+    out["offsets"] = {"max_abs": probe.max, "moving_share": probe.moving}
+    log(f"  offsets: max |offset| {probe.max:.4f} px (window radius 2), share of offsets "
+        f">= 0.05 px per deformable conv {', '.join(f'{m:.4f}' for m in probe.moving)}")
+    check(probe.max < 2.0 and min(probe.moving) > 0.1,
+          "22a: the offsets must move the samples and stay inside the window")
+    disp, labels = results["NHWC"]
+    gap_layout = disp_gap(results["s2d"][0], disp)
+    same_labels = (results["s2d"][1] == labels).float().mean().item()
+    log(f"  s2d vs NHWC: |Δdisp| mean {gap_layout[0]:.3e} max {gap_layout[1]:.3e}, labels "
+        f"{same_labels:.6f}")
+    check(gap_layout[0] <= 1e-3 and same_labels >= 0.9999, "22a: s2d and NHWC disagree")
+    del results
+
+    # the plain path: the plain stem in the trunk and SemRefine, the plain
+    # head (K1's plain version, f32 logits) on its left features
+    plain = build_stereo_model(device="cpu", seed=22, dtype="bfloat16", fuse_stem=False, **kw)
+    plain.load_state_dict(model.state_dict())
+    plain.to(dev)
+    head = model.segmentation
+    reset()
+    with torch.no_grad():
+        out_p, feat_p = plain.disparity(left, right)
+    torch.cuda.synchronize()
+    got = read()
+    gap = disp_gap(disp, out_p["disp"])
+    feat_p = feat_p.permute(0, 2, 3, 1).contiguous()
+    with torch.no_grad():
+        feat = model.feature_extractor(left)[0].permute(0, 2, 3, 1).contiguous()
+    feat_dev = ((feat.float() - feat_p.float()).abs().max() / feat_p.float().abs().max()).item()
+    # the path's labels against the plain head on the plain path's features, on
+    # all pixels and on those whose f32 top-two gap exceeds twice the logits'
+    # bf16 rounding (``decided_agreement``); then K1 alone, on the kernels'
+    # features
+    path = decided_agreement(torch, feat_p, head, labels)
+    k1_same = decided_agreement(torch, feat, head, labels)
+    log(f"  {card}: 22a kernels (K2 x4, K1) vs the plain stem and head, same weights: "
+        f"|Δdisp| mean {gap[0]:.4f} px (bar {STEREO_DISP_BAR}), max {gap[1]:.4f} px; left "
+        f"features max deviation {feat_dev:.3e} of max|feat|; labels: all pixels "
+        f"{path[0]:.6f}, decided pixels {path[1]:.6f} ({path[2]:.6f} of them; bar 0.99); K1 "
+        f"vs the plain head on the same features: all pixels {k1_same[0]:.6f}, decided "
+        f"pixels {k1_same[1]:.6f} ({k1_same[2]:.6f} of them); plain launches {got}")
+    check(not any(got.values()), "22a: the plain path launched a kernel")
+    check(gap[0] <= STEREO_DISP_BAR and path[2] >= 0.5 and path[1] >= 0.99
+          and k1_same[1] >= 0.99, "22a: the kernels' path disagrees with the plain path")
+    out["vs_plain"] = {"disp_mean_abs": gap[0], "disp_max_abs": gap[1],
+                       "label_agreement": path[0], "decided_agreement": path[1],
+                       "decided_share": path[2], "k1_decided_agreement": k1_same[1]}
+    del plain, out_p, feat_p
+    out["k1_ms"] = cuda_ms(lambda: head_fn(
+        feat, head.norm.weight, head.norm.bias, head.norm.running_mean, head.norm.running_var,
+        head.conv.weight, head.conv.bias), iters=20)
+    sc, sh = model.refinement.bn.folded()
+    x_stem = left.to(torch.bfloat16).contiguous()
+    out["k2_refinement_ms"] = cuda_ms(lambda: stem.fused_stem_pool(
+        x_stem, model.refinement.conv0.weight, sc, sh), iters=20)
+    del feat, x_stem
+    for _ in range(3):
+        serve(left, right)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    windows = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(20):
+            serve(left, right)
+        torch.cuda.synchronize()
+        windows.append(20 * STEREO_BATCH / (time.perf_counter() - t0))
+    got = read()
+    check(got["fused_stem_pool"] == 240 and got["fused_seghead_upsample_argmax"] == 60,
+          f"22a: 60 batches launch K2 240 and K1 60 times: {got}")
+    fps = 3 * 20 * STEREO_BATCH / sum(20 * STEREO_BATCH / f for f in windows)
+    out["fps"], out["fps_windows"] = fps, windows
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  {card}: 22a stereo serving {fps:.2f} frames/s (windows "
+        f"{', '.join(f'{f:.2f}' for f in windows)}), {1e3 * STEREO_BATCH / fps:.2f} ms a batch "
+        f"of {STEREO_BATCH}; peak memory {out['peak_gb']:.2f} GB; K1 {out['k1_ms']:.4f} ms, "
+        f"the refinement's K2 {out['k2_refinement_ms']:.4f} ms on this batch")
+
+    log("== 22c. the deformable convs' gather form vs the window form, full width, bf16")
+    probe = OffsetProbe(model)
+    serve(left, right)
+    probe.remove()
+    times, conv_err = {}, []
+    with torch.no_grad():
+        for impl in ("window", "gather", "gather", "window"):   # in turns
+            for module, x, offset, mask in probe.inputs:
+                times.setdefault(impl, []).append(cuda_ms(
+                    lambda: module(x, offset, mask, impl), iters=5, warmup=1))
+        # each deformable conv's own inputs at f32: both forms compute the
+        # same samples inside the radius, up to the order of the sums
+        for module, x, offset, mask in probe.inputs:
+            xf, mf = x.float(), mask.float()
+            win, gat = module(xf, offset, mf, "window"), module(xf, offset, mf, "gather")
+            conv_err.append(((win - gat).abs().max() / gat.abs().max()).item())
+            del xf, mf, win, gat
+    for m in model.modules():
+        if hasattr(m, "impl"):
+            m.impl = "gather"
+    disp_g, _ = serve(left, right)
+    for m in model.modules():
+        if hasattr(m, "impl"):
+            m.impl = "window"
+    torch.cuda.synchronize()
+    gap_g = disp_gap(disp_g, disp)
+    n_conv = len(probe.inputs)
+    t_win = [sum(times["window"][i::n_conv]) / 2 for i in range(n_conv)]
+    t_gat = [sum(times["gather"][i::n_conv]) / 2 for i in range(n_conv)]
+    out["deform"] = {"window_ms": t_win, "gather_ms": t_gat, "disp_mean_abs": gap_g[0],
+                     "disp_max_abs": gap_g[1], "max_abs_offset": probe.max,
+                     "conv_rel_err_f32": conv_err,
+                     "shape": list(probe.inputs[0][1].shape)}
+    log(f"  {card}: 22c max |offset| {probe.max:.4f} px; gather vs window |Δdisp| mean "
+        f"{gap_g[0]:.4f} px (bar {STEREO_DISP_BAR}), max {gap_g[1]:.4f} px; each conv at f32 "
+        f"on its own inputs, max |window - gather| / max |gather| "
+        f"{', '.join(f'{e:.3e}' for e in conv_err)} (bar 1e-4); one deformable conv at "
+        f"{tuple(probe.inputs[0][1].shape)}: window "
+        f"{', '.join(f'{t:.3f}' for t in t_win)} ms, gather "
+        f"{', '.join(f'{t:.3f}' for t in t_gat)} ms")
+    check(probe.max < 2.0 and gap_g[0] <= STEREO_DISP_BAR and max(conv_err) <= 1e-4,
+          "22c: the gather form disagrees with the window form inside the radius")
+    del model, serve, probe, disp_g, left, right, disp, labels
+    torch.cuda.empty_cache()
+
+    log(f"== 22b. f32 {STEREO_SMALL[1]}x{STEREO_SMALL[0]}, batch 1: the card's CUDA-core "
+        f"routes vs the CPU")
+    cpu_model = build_stereo_model(device="cpu", seed=23, dtype="float32", **kw)
+    randomize_bn(cpu_model, gen)
+    randomize_offsets(torch, cpu_model, gen)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    xl, xr = (v.float() for v in stereo_pair(torch, gen, 1, *STEREO_SMALL))
+    reset22()
+    d_gpu, l_gpu = make_stereo_serving_fn(card_model, device=dev)(xl.to(dev), xr.to(dev))
+    torch.cuda.synchronize()
+    got = read()
+    k1_cc = got["k1_cc"] = head_fn.cc_launches
+    out["launches_b"] = got
+    d_cpu, l_cpu = make_stereo_serving_fn(cpu_model, device="cpu")(xl, xr)
+    err = (d_gpu.cpu() - d_cpu).abs().max().item()
+    agree32 = (l_gpu.cpu() == l_cpu).float().mean().item()
+    out["f32"] = {"disp_max_abs_err": err, "disp_max": d_cpu.abs().max().item(),
+                  "label_agreement": agree32}
+    log(f"  launches {got}, K1 on CUDA cores {k1_cc}; disparity max abs err {err:.3e} of "
+        f"max {d_cpu.abs().max().item():.3f} (bar 1e-3 of max), label agreement "
+        f"{agree32:.6f} (bar 0.999)")
+    check(got["fused_stem_pool"] == 4 and got["fused_stem_pool_tc"] == 0
+          and got["fused_seghead_upsample_argmax"] == 1 and k1_cc == 1,
+          "22b: f32 serving must take K2's and K1's CUDA-core routes")
+    check(torch.isfinite(d_gpu).all().item() and err <= 1e-3 * d_cpu.abs().max().item()
+          and agree32 >= 0.999, "22b: the card disagrees with the CPU")
+    del cpu_model, card_model
+
+    log(f"== 22d. inference --stereo: 2 pairs of {KITTI_HW[1]}x{KITTI_HW[0]} padded to "
+        f"{KITTI_PAD[1]}x{KITTI_PAD[0]}, default composition (StereoNet refinement), f32 "
+        f"and bf16")
+    oh, ow = KITTI_HW
+    ph, pw = KITTI_PAD
+    out["inference"] = {}
+    with tempfile.TemporaryDirectory() as base:
+        for side in ("left", "right"):
+            os.makedirs(os.path.join(base, side))
+        pairs = []
+        for i in range(2):
+            pair = [v[0].numpy() for v in stereo_pair(torch, gen, 1, oh, ow)]
+            for side, img in zip(("left", "right"), pair):
+                write_png(os.path.join(base, side, f"{i:06d}_10.png"), img)
+            pairs.append(pair)
+        for dtype in ("float32", "bfloat16"):
+            # the CLI's composition: its defaults, as the call below parses them
+            cfg = port_inference.build_parser().parse_args(
+                ["--stereo", "--input", base, "--compute_dtype", dtype])
+            model = build_stereo_model(cfg, device="cpu", seed=24)
+            randomize_bn(model, gen)
+            randomize_offsets(torch, model, gen)
+            with torch.no_grad():   # keep the disparities inside 16 bits
+                model.refinement.conv_out.weight.mul_(0.01)
+                model.refinement.conv_out.bias.zero_()
+            ckpt = os.path.join(base, f"stereo_{dtype}.pt")
+            torch.save({"model": model.state_dict()}, ckpt)
+            model.to(dev)
+            reset()
+            res = port_inference.main([
+                "--stereo", "--input", os.path.join(base, "left"), "--right_input",
+                os.path.join(base, "right"), "--resume", ckpt, "--output_dir",
+                os.path.join(base, f"out_{dtype}"), "--val_img_height", str(ph),
+                "--val_img_width", str(pw), "--compute_dtype", dtype])
+            torch.cuda.synchronize()
+            got = read()
+            out["inference"][dtype] = {"launches": got}
+            tc = 6 if dtype == "bfloat16" else 0
+            expect_launches(got, f"22d inference --stereo {dtype}, 2 pairs", k2=6, tc=tc)
+            exact, within, clipped = [], [], []
+            for path, (lv, rv) in zip(res["paths"], pairs):
+                disk = read_png(path)
+                pad = ((ph - oh, 0), (0, pw - ow), (0, 0))
+                xl, xr = (torch.from_numpy(np.pad(v, pad)).to(dev, torch.float32)[None]
+                          for v in (lv, rv))
+                with torch.no_grad():
+                    d = model.disparity(xl, xr)[0]["disp"][0].cpu().numpy()
+                ref = np.clip(d[ph - oh:, :ow] * 256.0, 0, 65535).astype(np.uint16)
+                rt = os.path.join(base, "roundtrip.png")
+                write_png(rt, ref, "adaptive")
+                check(disk.dtype == np.uint16 and disk.shape == (oh, ow)
+                      and np.array_equal(read_png(rt), ref), "22d: 16-bit PNG round trip")
+                diff = np.abs(disk.astype(np.int32) - ref.astype(np.int32))
+                exact.append(float((diff == 0).mean()))
+                within.append(float((diff <= 1).mean()))
+                clipped.append(float(((ref == 0) | (ref == 65535)).mean()))
+            fps = 1.0 / float(np.mean(res["forward_s"][1:]))
+            out["inference"][dtype].update(fps=fps, forward_s=res["forward_s"], exact=exact,
+                                           within_1=within)
+            log(f"  {card}: 22d {dtype}: {fps:.2f} frames/s from the second pair "
+                f"(forward s {', '.join(f'{t:.4f}' for t in res['forward_s'])}); PNGs equal "
+                f"to the forward in process on {', '.join(f'{e:.6f}' for e in exact)} of the "
+                f"pixels, within 1 LSB on {', '.join(f'{e:.6f}' for e in within)} (bar "
+                f"0.999); clipped to 0 or 65535: {', '.join(f'{c:.4f}' for c in clipped)}")
+            check(min(within) >= 0.999 and max(clipped) < 0.5,
+                  f"22d: inference --stereo {dtype} disagrees with the forward")
+            del model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t22
+    log(f"  {card}: phase 22 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3300,7 +3672,7 @@ def main() -> int:
     k1_others = other_backbones_phase(torch, dev, card, gen19, reset, read)
     swift_cli_phase(torch, dev, card, reset, read)
     kernels[1]["weathernet_backbones"] = {
-        SWIFT: {"launches_a_serving_batch": 1, "ms": serve19["k1_ms"],
+        SWIFT: {"launches_a_serving_batch": serve19["k1_batch"], "ms": serve19["k1_ms"],
                 "bf16_agreement_decided": serve19["k1_bf16"][1],
                 "f32_agreement": serve19["k1_f32"][0]},
         "other_five_f32_serving": k1_others}
@@ -3322,6 +3694,21 @@ def main() -> int:
     kernels[0]["tsne_launches"] = p21["k2_tsne"]
     kernels[-1]["grain_launches"] = {"uninterrupted": p21["jf_uninterrupted"],
                                      "resumed": p21["jf_resumed"]}
+
+    # 22. stereo serving
+    p22 = stereo_phase(torch, dev, card, reset, read)
+    a22, b22 = p22["launches_a"], p22["launches_b"]
+    kernels[0]["stereo"] = {
+        "launches_a_serving_batch": a22["fused_stem_pool"],
+        "tensor_core_launches": a22["fused_stem_pool_tc"],
+        "f32_launches": b22["fused_stem_pool"],
+        "inference_stereo_launches_2_pairs": {
+            dtype: r["launches"]["fused_stem_pool"] for dtype, r in p22["inference"].items()},
+        "refinement_stem_ms": p22["k2_refinement_ms"]}
+    kernels[1]["stereo"] = {"launches_a_serving_batch": a22["fused_seghead_upsample_argmax"],
+                            "tensor_core_launches": a22["k1_tc"],
+                            "f32_cuda_core_launches": b22["k1_cc"], "ms": p22["k1_ms"],
+                            "f32_label_agreement_vs_cpu": p22["f32"]["label_agreement"]}
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

@@ -5,4 +5,5 @@ never JAX; its CUDA kernels live in ``csrc/`` and are built at first use.
 """
 
 from .config import Config
-from .models import DCSSModel, build_model, make_serving_fn
+from .models import (DCSSModel, StereoDCSS, build_model, build_stereo_model, make_serving_fn,
+                     make_stereo_serving_fn)

@@ -262,7 +262,8 @@ def check_ported(cfg: Config) -> None:
     if cfg.dataset in STEREO_DATASETS or (
             cfg.dataset == "synthetic" and not cfg.train_semantic
             and cfg.criterion == "none" and cfg.transfer_disparity):
-        todo = f"the stereo route (dataset {cfg.dataset!r}) is ROADMAP.md §1 item 5"
+        todo = (f"stereo training (dataset {cfg.dataset!r}) is ROADMAP.md §1 item 5c; "
+                "stereo serving runs through make_stereo_serving_fn and inference --stereo")
     elif cfg.num_devices is not None and cfg.num_devices > 1:
         todo = f"--num_devices {cfg.num_devices} is ROADMAP.md §1 item 6 (multi-GPU)"
     if todo:

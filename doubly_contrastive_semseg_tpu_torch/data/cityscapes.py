@@ -11,8 +11,8 @@ ids through ``ACDC.encode_target``: ids above 33 clamp to the ignore id),
 ``left_name`` and ``frame_name``; no ``weather``.
 
 The disparity column, JAX's ``read_disp`` and the lists of ``kitti_2015``,
-``kitti_mix`` and ``sceneflow`` belong to the stereo route (``ROADMAP.md``
-§1 item 5): ``load_disp`` is false for ``cityscapes``, as in JAX, and
+``kitti_mix`` and ``sceneflow`` belong to stereo training (``ROADMAP.md``
+§1 item 5c): ``load_disp`` is false for ``cityscapes``, as in JAX, and
 asking for the disparity (another dataset name, or ``load_disp=True``)
 raises ``NotImplementedError``.
 """
@@ -44,8 +44,8 @@ class Cityscapes:
         self.load_disp = (dataset_name != "cityscapes") if load_disp is None else load_disp
         if self.load_disp:
             raise NotImplementedError(
-                "not ported yet: the disparity maps of the stereo route are ROADMAP.md §1 "
-                f"item 5 (dataset {dataset_name!r})")
+                "not ported yet: the disparity maps of stereo training are ROADMAP.md §1 "
+                f"item 5c (dataset {dataset_name!r})")
         list_path = os.path.join(filelist_root, "cityscapes", f"cityscapes_semantic_{mode}.txt")
 
         self.samples: List[Dict] = []

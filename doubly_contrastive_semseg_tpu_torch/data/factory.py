@@ -16,9 +16,9 @@
   under ``data_root``, file lists under ``filelist_root``) and
   ``synthetic`` (in memory).
 
-The stereo lists ``kitti_2015``, ``kitti_mix`` and ``sceneflow`` are
-``ROADMAP.md`` §1 item 5: asking for them raises ``NotImplementedError``
-rather than taking another route.
+The stereo lists ``kitti_2015``, ``kitti_mix`` and ``sceneflow`` belong to
+stereo training, ``ROADMAP.md`` §1 item 5c: asking for them raises
+``NotImplementedError`` rather than taking another route.
 """
 
 from __future__ import annotations
@@ -139,6 +139,6 @@ def get_dataset(cfg, seed: int = 0):
         return train_dst, val_dst
     if cfg.dataset in _NOT_PORTED:
         raise NotImplementedError(
-            f"dataset {cfg.dataset!r} is not ported yet: the stereo route is ROADMAP.md "
-            "§1 item 5")
+            f"dataset {cfg.dataset!r} is not ported yet: stereo training is ROADMAP.md "
+            "§1 item 5c")
     raise ValueError(f"unknown dataset {cfg.dataset}")

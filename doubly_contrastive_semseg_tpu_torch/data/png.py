@@ -3,10 +3,11 @@
 ``read_png`` decodes non-interlaced 8-bit PNGs of every colour type (grey,
 grey + alpha, RGB, RGBA, palette) to the array ``np.array(Image.open(p))``
 gives, or with ``mode="RGB"`` to ``np.array(Image.open(p).convert("RGB"))``:
-alpha dropped, grey replicated, the palette looked up. Chunk CRCs are
-checked as Pillow checks them. Interlaced and 16-bit (or 1/2/4-bit) files
-raise ``NotImplementedError``: the ACDC and Cityscapes files are 8-bit RGB
-frames and 8-bit grey label maps.
+alpha dropped, grey replicated, the palette looked up; and 16-bit grey
+PNGs (the KITTI disparity maps, ``disparity × 256``) to uint16. Chunk CRCs
+are checked as Pillow checks them. Interlaced files, 16-bit files of
+other colour types and 1/2/4-bit ones raise ``NotImplementedError``: the
+ACDC and Cityscapes files are 8-bit RGB frames and 8-bit grey label maps.
 
 Unfiltering is the cost. None, Sub (a running byte sum along the row) and
 Up (a byte sum down the rows) vectorise by rows. Average and Paeth read the
@@ -16,10 +17,11 @@ shifted right by one pixel a row, where pixel (r, x) sits in column r + x:
 its left, upper and upper-left neighbours are then in the two columns
 before it, and one column is one vectorised step over all the rows.
 
-``write_png`` writes the same file types with a chosen filter, one filter
-a row, or ``"adaptive"``: each row's filter chosen as Pillow's encoder
-chooses it, so the tests and ``chip_smoke.py`` make fixtures on a machine
-without PIL.
+``write_png`` writes the same file types, and 16-bit grey from uint16,
+with a chosen filter, one filter a row, or ``"adaptive"``: each row's
+filter chosen as Pillow's encoder chooses it, so the tests and
+``chip_smoke.py`` make fixtures on a machine without PIL. A 16-bit sample
+is two big-endian bytes, and the filters work on bytes, two a pixel.
 """
 
 from __future__ import annotations
@@ -146,7 +148,8 @@ def read_png(path, mode: Optional[str] = None) -> np.ndarray:
     """The pixels of an 8-bit, non-interlaced PNG as uint8: what
     ``np.array(Image.open(path))`` gives ((H, W) grey or palette indices,
     (H, W, 2) grey + alpha, (H, W, 3) RGB, (H, W, 4) RGBA), or with
-    ``mode="RGB"`` what ``.convert("RGB")`` gives."""
+    ``mode="RGB"`` what ``.convert("RGB")`` gives; a 16-bit grey PNG as
+    (H, W) uint16 (Pillow's ``I;16``), without ``mode``."""
     if mode not in (None, "RGB"):
         raise ValueError(f"read_png: mode None or 'RGB', got {mode!r}")
     with open(path, "rb") as f:
@@ -165,16 +168,20 @@ def read_png(path, mode: Optional[str] = None) -> np.ndarray:
     if color not in _CHANNELS or compression != 0 or filtering != 0:
         raise ValueError(f"{path}: PNG colour type {color}, compression {compression}, "
                          f"filter method {filtering} do not exist")
-    if depth != 8:
-        raise NotImplementedError(f"{path}: {depth}-bit PNG; the reader decodes 8-bit samples")
+    wide = depth == 16 and color == 0 and mode is None
+    if depth != 8 and not wide:
+        raise NotImplementedError(f"{path}: {depth}-bit PNG of colour type {color}; the reader "
+                                  "decodes 8-bit samples and 16-bit grey")
     if interlace:
         raise NotImplementedError(f"{path}: interlaced (Adam7) PNG; the reader decodes "
                                   "non-interlaced files")
-    bpp = _CHANNELS[color]
+    bpp = _CHANNELS[color] * (2 if wide else 1)     # bytes a pixel
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (1 + w * bpp):
         raise ValueError(f"{path}: {raw.size} bytes of scanlines for {w}x{h}x{bpp}")
     pix = _unfilter(raw, h, w, bpp)
+    if wide:
+        return pix.view(">u2")[..., 0].astype(np.uint16)
     if color == 3:
         if palette is None:
             raise ValueError(f"{path}: palette PNG without PLTE")
@@ -218,15 +225,19 @@ def write_png(path, img, filter_type: Union[int, Sequence[int], str] = NONE,
               palette: Optional[np.ndarray] = None) -> None:
     """Write a uint8 array as an 8-bit PNG: (H, W) grey, (H, W, 2) grey +
     alpha, (H, W, 3) RGB, (H, W, 4) RGBA, or (H, W) indices into
-    ``palette`` (n, 3). ``filter_type`` is one of the five filters for every
-    row, a sequence with one for each row, or ``"adaptive"`` for Pillow's
-    choice row by row (None on every row of a palette image)."""
+    ``palette`` (n, 3); or a uint16 (H, W) array as a 16-bit grey PNG.
+    ``filter_type`` is one of the five filters for every row, a sequence
+    with one for each row, or ``"adaptive"`` for Pillow's choice row by row
+    (None on every row of a palette image)."""
     img = np.asarray(img)
-    if img.dtype != np.uint8 or img.ndim not in (2, 3):
-        raise TypeError(f"write_png: a uint8 (H, W) or (H, W, C) array, got {img.dtype} "
-                        f"{img.shape}")
+    wide = img.dtype == np.uint16 and img.ndim == 2 and palette is None
+    if not wide and (img.dtype != np.uint8 or img.ndim not in (2, 3)):
+        raise TypeError(f"write_png: a uint8 (H, W) or (H, W, C) array or a uint16 (H, W) "
+                        f"one, got {img.dtype} {img.shape}")
     h, w = img.shape[:2]
     bpp = 1 if img.ndim == 2 else img.shape[2]
+    if wide:   # big-endian sample bytes, filtered as two bytes a pixel
+        img = img.astype(">u2").view(np.uint8).reshape(h, w, 2)
     if palette is not None:
         palette = np.asarray(palette, np.uint8).reshape(-1, 3)
         if bpp != 1 or not 1 <= len(palette) <= 256 or int(img.max(initial=0)) >= len(palette):
@@ -246,13 +257,14 @@ def write_png(path, img, filter_type: Union[int, Sequence[int], str] = NONE,
         kinds = np.broadcast_to(np.asarray(filter_type, np.uint8), (h,))
         if kinds.max(initial=0) > PAETH:
             raise ValueError(f"write_png: filter types are 0-4, got {filter_type}")
-    lines = _filter_rows(img.reshape(h, w, bpp), kinds)
+    lines = _filter_rows(img.reshape(h, w, 2 if wide else bpp), kinds)
 
     def chunk(kind: bytes, body: bytes) -> bytes:
         return struct.pack(">I", len(body)) + kind + body + struct.pack(
             ">I", zlib.crc32(kind + body))
 
-    parts = [_SIGNATURE, chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))]
+    parts = [_SIGNATURE, chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16 if wide else 8, color,
+                                                     0, 0, 0))]
     if palette is not None:
         parts.append(chunk(b"PLTE", palette.tobytes()))
     parts += [chunk(b"IDAT", zlib.compress(lines.tobytes())), chunk(b"IEND", b"")]

@@ -1,4 +1,5 @@
 from .blocks import BNReluConv, PreActConv, UpsampleBlend
 from .resnet_pyramid import PyramidResNet, resnet18_pyramid, resnet34_pyramid
-from .serving import make_serving_fn
+from .serving import make_serving_fn, make_stereo_serving_fn
+from .stereo import StereoDCSS, build_stereo_model
 from .weathernet import WeatherNet, WeatherClassifier, ProjectionHead, DCSSModel, build_model

@@ -166,6 +166,11 @@ class BNReluConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(torch.relu(self.norm(x)))
 
+    def nhwc_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The head's output as (B, h, w, features) float32: the seg
+        logits of (B, C, h, w) features, as the models return them."""
+        return self(x).permute(0, 2, 3, 1).float()
+
 
 class PreActConv(BNReluConv):
     """The decoder's 3×3 BN → ReLU → conv (same names as ``BNReluConv``)."""

@@ -9,6 +9,10 @@ model's seg logits are never computed. Other sizes, and every other model
 (DeepLab, ENet: JAX's generic branch, ``serving.py:22-52``), take JAX's
 other branches: the ×4 upsample-argmax of ``seg_beforeup`` when 4× its
 height is the image's, else the argmax of the full-resolution ``seg``.
+
+``make_stereo_serving_fn`` serves ``StereoDCSS`` (JAX ``serving.py:55-91``):
+disparity and, with ``train_semantic``, the label map of the left view from
+the same fused head on the shared trunk's left features.
 """
 
 from __future__ import annotations
@@ -20,7 +24,27 @@ import torch
 from ..ops.input_pipeline import image_hw, upsample4x_argmax
 from ..ops.interpolate import resize_bilinear
 from ..ops.seghead import fused_seghead_upsample_argmax
-from .weathernet import DCSSModel
+from .stereo import StereoDCSS
+from .weathernet import DCSSModel, check_device
+
+
+def _labels(head, feat: torch.Tensor, size, use_fused_head: bool = True) -> torch.Tensor:
+    """(B, H, W) int8 labels of the (B, 128, h, w) features through the
+    ``BNReluConv`` seg ``head``: the fused head (K1) when the image is 4×
+    the features and there are at least 10 feature rows, else the ×4
+    upsample-argmax of the logits when 4h is the image's height (JAX tests
+    the height only, ``serving.py:48``), else the argmax of their bilinear
+    resize to the image."""
+    h, w = feat.shape[2:]
+    if use_fused_head and h >= 10 and (4 * h, 4 * w) == tuple(size):
+        return fused_seghead_upsample_argmax(
+            feat.permute(0, 2, 3, 1).contiguous(), head.norm.weight, head.norm.bias,
+            head.norm.running_mean, head.norm.running_var, head.conv.weight, head.conv.bias,
+            eps=head.norm.eps)
+    seg_beforeup = head.nhwc_logits(feat)
+    if 4 * h == size[0]:
+        return upsample4x_argmax(seg_beforeup).to(torch.int8)
+    return resize_bilinear(seg_beforeup, size).argmax(-1).to(torch.int8)
 
 
 def make_serving_fn(model: torch.nn.Module, device="cuda",
@@ -32,10 +56,7 @@ def make_serving_fn(model: torch.nn.Module, device="cuda",
     ``DCSSModel`` the fused head serves images that are 4× the features and
     have at least 10 feature rows. Runs on the card unless ``device`` asks
     for the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("make_serving_fn: CUDA is not available; pass "
-                           "device='cpu' to serve on the CPU")
+    device = check_device(device, "make_serving_fn")
     model.eval()
     if not isinstance(model, DCSSModel):
         @torch.no_grad()
@@ -51,17 +72,32 @@ def make_serving_fn(model: torch.nn.Module, device="cuda",
     @torch.no_grad()
     def serve(image) -> torch.Tensor:
         x = torch.as_tensor(image, device=device)
-        size = image_hw(x)
         feat, _ = model.net.feature_extractor(x)   # (B, 128, h, w)
-        h, w = feat.shape[2:]
-        if use_fused_head and h >= 10 and (4 * h, 4 * w) == size:
-            return fused_seghead_upsample_argmax(
-                feat.permute(0, 2, 3, 1).contiguous(), head.norm.weight, head.norm.bias,
-                head.norm.running_mean, head.norm.running_var,
-                head.conv.weight, head.conv.bias, eps=head.norm.eps)
-        seg_beforeup = model.net.seg_logits(feat)
-        if 4 * h == size[0]:   # JAX tests the height only (serving.py:48)
-            return upsample4x_argmax(seg_beforeup).to(torch.int8)
-        return resize_bilinear(seg_beforeup, size).argmax(-1).to(torch.int8)
+        return _labels(head, feat, image_hw(x), use_fused_head)
+
+    return serve
+
+
+def make_stereo_serving_fn(model: StereoDCSS, device="cuda") -> Callable:
+    """Returns ``serve(left, right) -> (disparity (B, H, W) float32, labels
+    (B, H, W) int8 or None)`` for a model of ``build_stereo_model`` on
+    ``device``; the views are pixels (tensors or arrays) in NHWC, planar or
+    s2d layout. The model's full-resolution ``seg`` logits are never
+    computed: with ``train_semantic`` the labels come from the left view's
+    trunk features as ``make_serving_fn`` takes them (K1 where the image is
+    4× the features with at least 10 feature rows); a disparity-only model
+    gives ``None``. Runs on the card unless ``device`` asks for the CPU."""
+    device = check_device(device, "make_stereo_serving_fn")
+    model.eval()
+
+    @torch.no_grad()
+    def serve(left, right):
+        xl = torch.as_tensor(left, device=device)
+        xr = torch.as_tensor(right, device=device)
+        out, left_feat = model.disparity(xl, xr)
+        disp = out["disp"].float()
+        if not model.train_semantic:
+            return disp, None
+        return disp, _labels(model.segmentation, left_feat, image_hw(xl))
 
     return serve

@@ -112,7 +112,7 @@ class WeatherNet(nn.Module):
         else:
             feat, additional = self.feature_extractor(image)
         feat0 = feat[:feat.shape[0] // 2] if return_supcon_feature else feat
-        seg_beforeup = self.seg_logits(feat0)
+        seg_beforeup = self.segmentation.nhwc_logits(feat0)
         return {
             "seg": resize_bilinear(seg_beforeup, image_hw(image)),
             "seg_beforeup": seg_beforeup,
@@ -120,11 +120,6 @@ class WeatherNet(nn.Module):
             "fine_feat0": nhwc(feat0),
             "skips_0": nhwc(additional["skips_0"]),
         }
-
-    def seg_logits(self, feat: torch.Tensor) -> torch.Tensor:
-        """The seg head's (B, h, w, classes) float32 logits of the decoder
-        features (B, 128, h, w)."""
-        return nhwc(self.segmentation(feat)).float()
 
 
 class DCSSModel(nn.Module):
@@ -160,6 +155,16 @@ class DCSSModel(nn.Module):
         return out
 
 
+def check_device(device, what: str) -> torch.device:
+    """``device`` as a ``torch.device``; ``what`` (an entry point's name)
+    raises if it asks for the card and there is none."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: CUDA is not available; pass "
+                           "device='cpu' to run on the CPU")
+    return device
+
+
 def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
     """Model factory (reference ``utils/init_trainer.py:97-111``), routed as
     JAX's: ``--deeplab`` or a ``deeplabv3*`` name → ``DeepLabDCSS``,
@@ -168,10 +173,7 @@ def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
     ``seed``; the model is returned in eval mode. A SupCon criterion
     (``cfg.use_supcon``) adds the projection head. Runs on the card unless
     ``device`` asks for the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_model: CUDA is not available; pass "
-                           "device='cpu' to run on the CPU")
+    device = check_device(device, "build_model")
     dtype = _DTYPES[cfg.compute_dtype]
     if cfg.deeplab or cfg.model.startswith("deeplabv3"):
         from .deeplab import build_deeplab_dcss

@@ -18,8 +18,17 @@ become the reference's torch names where the port's modules carry them,
 JAX's names in torch form elsewhere (``_feature_extractor``). A JAX model
 initialised for training (``return_supcon_feature=True``) has
 ``projection/{fc1,fc2}``, which land on ``projection.{fc1,fc2}`` of a port
-model built with ``projection=True``. A tree of gradients maps like a tree
-of parameters.
+model built with ``projection=True``. JAX's ``StereoDCSS`` (top-level
+``feature_extractor``, ``aggregation``, ``segmentation``, ``refinement``)
+lands on the port's under the reference's names: the aggregation's
+``fusionF/branchI_B`` → ``fusions.F.branches.I.B`` with ``mdconv`` →
+``conv2``, ``fuseI_J_{conv,bn}K`` → ``fuse_layers.I.J[.K].{0,1}``,
+``final_convI`` → ``final_conv.I``; a deformable conv's own ``kernel``
+and ``bias`` → ``deform_conv.{weight,bias}``; ``SemRefine``'s ``bn0`` →
+``bn``, ``enc_{img,disp,sem}`` → ``conv{1,2,3}.{0,1}``, the Dense gates
+``{sem,disp}_att`` → the 1×1 convs ``{sem,disp}_attention.1``,
+``final_{disp,sem}`` → ``final_conv_{disp,sem}``. A tree of gradients
+maps like a tree of parameters.
 """
 
 from __future__ import annotations
@@ -58,7 +67,8 @@ def _torch_module_name(part: str) -> str:
     m = re.fullmatch(r"layer(\d)_(\d+)", part)
     if m:
         return f"layer{m.group(1)}.{m.group(2)}"
-    return {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}.get(part, part)
+    return {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1",
+            "mdconv": "conv2"}.get(part, part)
 
 
 def _conv_bn(path: Tuple[str, ...], conv: str, bn: str) -> str:
@@ -189,6 +199,34 @@ def _enet(path: Tuple[str, ...]) -> str:
     return f"{block}.{_ENET[kind][path[1]]}"
 
 
+_SEM_REFINE = {"bn0": "bn", "enc_img": "conv1", "enc_disp": "conv2", "enc_sem": "conv3",
+               "sem_att": "sem_attention.1", "disp_att": "disp_attention.1",
+               "final_disp": "final_conv_disp", "final_sem": "final_conv_sem"}
+
+
+def _sem_refine(path: Tuple[str, ...]) -> str:
+    """JAX ``SemRefine``'s module → the reference's name."""
+    top = _SEM_REFINE.get(path[0], path[0])
+    if path[0].startswith("enc_"):   # a ConvBNLRelu: the Sequential's conv, BN
+        return f"{top}." + ("0" if path[1] == "conv" else "1")
+    return ".".join((top,) + path[1:])
+
+
+def _aggregation(path: Tuple[str, ...]) -> str:
+    """JAX ``AdaptiveAggregation``'s module → the reference's name."""
+    m = re.fullmatch(r"final_conv(\d+)", path[0])
+    if m:
+        return f"final_conv.{m.group(1)}"
+    f = path[0][len("fusion"):]
+    m = re.fullmatch(r"branch(\d+)_(\d+)", path[1])
+    if m:
+        return ".".join((f"fusions.{f}.branches.{m.group(1)}.{m.group(2)}",)
+                        + tuple(_torch_module_name(p) for p in path[2:]))
+    i, j, kind, k = re.fullmatch(r"fuse(\d+)_(\d+)_(conv|bn)(\d+)", path[1]).groups()
+    seq = f"{k}." if int(i) > int(j) else ""   # fine → coarse: a chain of Sequentials
+    return f"fusions.{f}.fuse_layers.{i}.{j}.{seq}" + ("0" if kind == "conv" else "1")
+
+
 def _module_name(path: Tuple[str, ...], params: Mapping) -> str:
     """The port's dotted module name of the JAX module at ``path``; the
     family and the branches it takes are read off ``params`` (a params or a
@@ -205,6 +243,12 @@ def _module_name(path: Tuple[str, ...], params: Mapping) -> str:
         return ".".join(_torch_module_name(p) for p in path)
     if top == "classifier":
         return _deeplab_head(path[1:], "project" in params["classifier"])
+    if top == "feature_extractor":   # StereoDCSS's trunk
+        return "feature_extractor." + _feature_extractor(path[1:], params[top])
+    if top == "aggregation":
+        return "aggregation." + _aggregation(path[1:])
+    if top == "refinement" and "enc_img" in params[top]:
+        return "refinement." + _sem_refine(path[1:])
     if top != "backbone":   # a block's own tree
         return ".".join(_torch_module_name(p) for p in path)
     backbone = params["backbone"]
@@ -221,9 +265,11 @@ def _module_name(path: Tuple[str, ...], params: Mapping) -> str:
 
 
 def _is_transposed(path) -> bool:
-    """ENet's transposed convs, and the first conv of a ``deconv*`` step
-    (``Conv2x(deconv=True)``) of the hourglass's ladder."""
-    return (path[-1] in ("ext_tconv", "transposed_conv")
+    """ENet's transposed convs, the first conv of a ``deconv*`` step
+    (``Conv2x(deconv=True)``) of the hourglass's and ``SemRefine``'s
+    ladders, and ``SemRefine``'s bare ×2 deconvolutions."""
+    return (path[-1] in ("ext_tconv", "transposed_conv", "deconv1", "deconv2", "deconv1_sem",
+                         "deconv2_sem")
             or (path[-2:] == ("conv1", "conv") and path[-3].startswith("deconv")))
 
 
@@ -234,6 +280,8 @@ def _weight(path, value: np.ndarray) -> np.ndarray:
         value = s2d_kernel_to_dense(value)
     if _is_transposed(path):   # un-flip, (I, O, kh, kw)
         return value[::-1, ::-1].transpose(2, 3, 0, 1)
+    if path[-1] in ("sem_att", "disp_att"):   # a Dense gate: the 1×1 conv it is
+        return value.T[:, :, None, None]
     if value.ndim == 4:
         return value.transpose(3, 2, 0, 1)
     return value.T
@@ -247,14 +295,25 @@ def _walk(tree: Mapping, path=()):
             yield path, k, np.asarray(v, np.float32)
 
 
+def _is_deform_conv(params: Mapping, path) -> bool:
+    """The JAX module at ``path`` is a ``DeformConv2d``, whose own
+    ``kernel`` and ``bias`` sit beside its ``offset_conv``."""
+    node = params
+    for p in path:
+        node = node[p]
+    return "offset_conv" in node
+
+
 def from_jax_variables(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
-    """State dict for the port's ``DCSSModel``, ``DeepLabDCSS`` or
-    ``ENetDCSS`` from the JAX model's ``params`` and ``batch_stats``
-    trees."""
+    """State dict for the port's ``DCSSModel``, ``DeepLabDCSS``,
+    ``ENetDCSS`` or ``StereoDCSS`` from the JAX model's ``params`` and
+    ``batch_stats`` trees."""
     layout = params or batch_stats
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf, value in _walk(params):
         prefix = _module_name(path, layout)
+        if leaf in ("kernel", "bias") and _is_deform_conv(params, path):
+            prefix += ".deform_conv"
         if leaf == "conv1_kernel":   # the MobileNetV2 pyramid's unmasked s2d stem
             prefix, leaf = f"{prefix}.conv1", "weight"
             value = s2d_kernel_to_dense(value).transpose(3, 2, 0, 1)

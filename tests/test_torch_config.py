@@ -175,5 +175,5 @@ def test_clis_need_the_card_or_device_cpu(tmp_path):
         port_inference.main(["--input", str(tmp_path)])
     with pytest.raises(RuntimeError, match="--test_only requires"):
         port_main.main(["--test_only", "--device", "cpu", "--run_root", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="§1 item 5"):
+    with pytest.raises(SystemExit, match="need paired left/right lists"):
         port_inference.main(["--input", str(tmp_path), "--stereo", "--device", "cpu"])

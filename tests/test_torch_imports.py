@@ -96,3 +96,15 @@ def test_every_module_imports_without_jax(guarded):
     failed = {name: err for name, err in guarded["result"].items() if err is not None}
     assert set(guarded["result"]) == set(MODULES) | set(SMOKE)
     assert failed == {}, "\n".join(f"{name}: {err}" for name, err in sorted(failed.items()))
+
+
+STEREO = ("ops.cost_volume", "ops.deform_conv", "models.stereo", "models.stereo_extras",
+          "models.serving", "inference")
+
+
+@pytest.mark.parametrize("name", STEREO)
+def test_stereo_modules_import_without_jax(guarded, name):
+    """The stereo serving slice's modules are in the guarded list and
+    import with JAX refused."""
+    assert f"{PACKAGE}.{name}" in MODULES
+    assert guarded["result"][f"{PACKAGE}.{name}"] is None

@@ -5,7 +5,8 @@ No tolerance: a decoded PNG is exact. ``read_png`` gives
 ``np.array(Image.open(p).convert("RGB"))``, for files Pillow wrote (its
 own choice of filters a row) and for files ``write_png`` wrote with each of
 the five filters and with a different filter on consecutive rows, in grey,
-grey + alpha, RGB, RGBA and palette modes. ``write_png(..., "adaptive")``
+grey + alpha, RGB, RGBA and palette modes, and 16-bit grey (Pillow's
+``I;16``, the KITTI disparity maps) both ways. ``write_png(..., "adaptive")``
 filters each row as Pillow's encoder does: the same scanline bytes. The
 routes not ported raise.
 """
@@ -124,11 +125,43 @@ def _rewrite_ihdr(path, **fields):
     open(path, "wb").write(bytes(data))
 
 
+def sixteen_bit(rng):
+    arr = rng.integers(0, 65536, SHAPE).astype(np.uint16)
+    arr[:, : SHAPE[1] // 2] = arr[:1, : SHAPE[1] // 2]
+    arr[-1] = [0, 255, 256, 65535] * (SHAPE[1] // 4) + [1] * (SHAPE[1] % 4)   # byte edges
+    return arr
+
+
+def test_read_png_of_pil_16_bit_grey(tmp_path, rng):
+    arr = sixteen_bit(rng)
+    Image.fromarray(arr).save(tmp_path / "pil.png")
+    assert Image.open(tmp_path / "pil.png").mode == "I;16"
+    got = read_png(tmp_path / "pil.png")
+    assert got.dtype == np.uint16
+    np.testing.assert_array_equal(got, np.array(Image.open(tmp_path / "pil.png")))
+    np.testing.assert_array_equal(got, arr)
+
+
+@pytest.mark.parametrize("filt", list(FILTERS))
+def test_write_png_16_bit_grey_reads_back(tmp_path, rng, filt):
+    arr = sixteen_bit(rng)
+    kinds = FILTERS[filt]
+    write_png(tmp_path / "port.png", arr, kinds[:SHAPE[0]] if isinstance(kinds, list) else kinds)
+    im = Image.open(tmp_path / "port.png")
+    assert im.mode == "I;16"
+    np.testing.assert_array_equal(np.array(im), arr)
+    np.testing.assert_array_equal(read_png(tmp_path / "port.png"), arr)
+
+
 def test_read_png_refuses_what_it_does_not_decode(tmp_path, rng):
     img = rng.integers(0, 256, (8, 9, 3)).astype(np.uint8)
     p = tmp_path / "f.png"
     Image.fromarray(rng.integers(0, 65535, (8, 9)).astype(np.uint16)).save(p)
     with pytest.raises(NotImplementedError, match="16-bit"):
+        read_png(p, mode="RGB")                  # 16-bit grey decodes without a mode
+    write_png(p, img)
+    _rewrite_ihdr(p, depth=16)
+    with pytest.raises(NotImplementedError, match="16-bit PNG of colour type 2"):
         read_png(p)
     im = Image.fromarray((img[..., 0] % 4), "P")
     im.putpalette(bytes(range(12)))
