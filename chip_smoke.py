@@ -186,6 +186,21 @@ offsets inside the window, with both times (c); ``inference --stereo`` on
 two 375×1242 pairs padded to 384×1248 at f32 and bf16, its 16-bit PNGs
 read back and held to the same forward in process (d).
 
+Then the rest of stereo serving (phase 23), at the same widths (max_disp
+192, the published channel counts), random weights with the BN (3-D too)
+randomised and each deformable conv's offsets scaled to 1 px on average:
+``psmnet_hg`` (the concat volume, PSMNet's stacked hourglass) with the
+``hourglass`` refinement (warp error, three gather-form deformable convs)
+and the seg head at 2048×1024, batch 2, bf16, NHWC and s2d: K2 3 times a
+batch (no stem in the refinement) and K1 once, against the plain stem and
+head, frames/s, peak memory and the times of the first Conv3d and of the
+full-resolution deformable ``conv_start`` (a); ``stereonet``,
+``psmnet_basic`` and ``gcnet`` with ``stereodrnet`` at 1280×384 (KITTI
+padded to GCNet's multiple of 64), batch 1, bf16: ms a pair, peak memory
+(b); f32 at 512×256 card vs CPU, each aggregation and each refinement (c);
+``inference --stereo`` with ``psmnet_hg`` and ``hourglass`` on the KITTI-
+sized pairs at f32 and bf16 (d).
+
 Any failure raises and exits non-zero; so does a machine without CUDA or a
 directory without the package. The last line is ``{"ok": true, "device":
 {...}}``; the line before it lists each kernel's launches, error and times.
@@ -232,6 +247,10 @@ STEREO_SMALL = (256, 512)               # 22b: f32, the card's kernel routes vs 
 KITTI_HW, KITTI_PAD = (375, 1242), (384, 1248)   # 22d: KITTI frames, padded as JAX pads them
 OFFSET_STD = 0.12                       # 22: random offset convs, offsets well inside ±2 px
 STEREO_DISP_BAR = 1.0                   # 22a, 22c: mean |Δdisparity| bar, pixels
+# phase 23: the 3-D aggregations and warp-error refinements at the same widths
+KITTI_GCNET = (384, 1280)               # 23b: KITTI's 1242x375 padded to GCNet's multiple of 64
+STEREO_3D_PAIRS = (("stereonet", "hourglass"), ("psmnet_basic", "stereodrnet"),
+                   ("psmnet_hg", "stereodrnet"), ("gcnet", "hourglass"))   # 23c
 
 
 def check(cond: bool, msg: str) -> None:
@@ -266,7 +285,7 @@ def randomize_bn(model, gen) -> None:
     import torch
 
     for m in model.modules():
-        if isinstance(m, torch.nn.BatchNorm2d):
+        if isinstance(m, (torch.nn.BatchNorm2d, torch.nn.BatchNorm3d)):
             c = m.num_features
             with torch.no_grad():
                 m.running_mean.copy_(torch.randn(c, generator=gen) * 0.1)
@@ -3368,6 +3387,365 @@ def stereo_phase(torch, dev, card, reset, read):
     return out
 
 
+def calm_offsets(torch, model, left, right):
+    """Scales each deformable conv's offset conv, in call order, so that its
+    offsets average 1 px on the pair (random offset convs over raw-pixel
+    features move the samples by tens of pixels, off the image); returns
+    the mean |offset| each had before."""
+    from doubly_contrastive_semseg_tpu_torch.ops.deform_conv import DeformConv2d
+
+    means = []
+    for conv in [m for m in model.modules() if isinstance(m, DeformConv2d)]:
+        seen = []
+        hook = conv.deform_conv.register_forward_hook(
+            lambda mod, args, out: seen.append(args[1].abs().mean().item()))
+        with torch.no_grad():
+            model.disparity(left, right)
+        hook.remove()
+        with torch.no_grad():
+            conv.offset_conv.weight.div_(seen[0])
+            conv.offset_conv.bias.div_(seen[0])
+        means.append(seen[0])
+    return means
+
+
+def quiet_refinement(torch, model) -> None:
+    """The warp-error refinement's output conv scaled by 0.01, its bias 0: a
+    random refinement's Δ spans ±100 px and magnifies each rounding
+    upstream ×30 (a trained one corrects a few px)."""
+    conv = getattr(model.refinement, "final_conv", None) or model.refinement.final
+    with torch.no_grad():
+        conv.weight.mul_(0.01)
+        conv.bias.zero_()
+
+
+class FirstInput:
+    """Keeps the arguments of ``module``'s first call."""
+
+    def __init__(self, module):
+        self.args = None
+        self.handle = module.register_forward_hook(self._hook)
+
+    def _hook(self, module, args, out):
+        if self.args is None:
+            self.args = args
+        self.handle.remove()
+
+
+def stereo_3d_phase(torch, dev, card, reset, read):
+    """23. ``StereoDCSS`` with the 3-D aggregations and the warp-error
+    refinements (module docstring), max_disp 192, random weights with the
+    BN (3-D too) randomised, the offset convs scaled to 1 px
+    (``calm_offsets``) and, except in (b), the refinement's output conv
+    scaled down (``quiet_refinement``): (a) ``psmnet_hg`` + ``hourglass`` + ``train_semantic``
+    at 2048×1024 × 2 bf16, NHWC and s2d, K2 3 and K1 1 launches a batch on
+    their tensor-core routes, against the plain stem and head (mean
+    |Δdisp| ``STEREO_DISP_BAR``, labels 0.99 on the decided pixels),
+    frames/s (3 warm-up batches, 3 windows of 5), peak memory, and the
+    times of the first Conv3d (on the concat volume) and of the
+    full-resolution deformable ``conv_start``; (b) ``stereonet``,
+    ``psmnet_basic`` and ``gcnet`` with ``stereodrnet``, disparity only, at
+    ``KITTI_GCNET`` × 1 bf16: ms a batch, peak memory, K2 3 a batch; (c)
+    f32 ``STEREO_SMALL`` card vs CPU for ``STEREO_3D_PAIRS`` (each
+    aggregation, each refinement twice): disparity 1e-3 of max; (d)
+    ``inference --stereo --aggregation_type psmnet_hg --refinement_type
+    hourglass`` at f32 and bf16 on two ``KITTI_HW`` pairs padded to
+    ``KITTI_PAD``: K2 3 a pair, the PNGs read back exactly and within 1 LSB
+    of the forward in process on 0.999 of the pixels. Returns the launches
+    and times for the kernels line."""
+    from doubly_contrastive_semseg_tpu_torch import build_stereo_model, make_stereo_serving_fn
+    from doubly_contrastive_semseg_tpu_torch import inference as port_inference
+    from doubly_contrastive_semseg_tpu_torch.data.png import read_png, write_png
+    from doubly_contrastive_semseg_tpu_torch.models.stereo_extras import (
+        HourglassRefinement, PSMNetHGAggregation)
+    from doubly_contrastive_semseg_tpu_torch.ops import seghead
+    from doubly_contrastive_semseg_tpu_torch.ops.cost_volume import (
+        cost_volume, soft_argmin_disparity)
+    from doubly_contrastive_semseg_tpu_torch.ops.input_pipeline import to_nhwc
+
+    t23 = time.perf_counter()
+    gen = torch.Generator().manual_seed(23)
+    head_fn = seghead.fused_seghead_upsample_argmax
+    out = {}
+
+    def reset23():
+        reset()
+        head_fn.tc_launches = head_fn.cc_launches = 0
+
+    def small_pair():
+        return (v.to(dev, torch.float32) for v in stereo_pair(torch, gen, 1, *STEREO_SMALL))
+
+    kw = dict(max_disp=STEREO_MAX_DISP, aggregation_type="psmnet_hg", refinement_type="hourglass",
+              train_semantic=True, backbone="resnet18")
+    log(f"== 23a. stereo serving: StereoDCSS resnet18, max_disp {STEREO_MAX_DISP}, psmnet_hg, "
+        f"hourglass refinement, {WIDTH}x{HEIGHT}, batch {STEREO_BATCH}, bf16")
+    torch.backends.cudnn.benchmark = True
+    model = build_stereo_model(device="cpu", seed=23, dtype="bfloat16", **kw)
+    randomize_bn(model, gen)
+    randomize_offsets(torch, model, gen)
+    agg, ref = model.aggregation, model.refinement
+    first_conv = agg.dres0[0][0]
+    check(isinstance(agg, PSMNetHGAggregation) and first_conv.in_channels == 256
+          and first_conv.out_channels == 32 and isinstance(ref, HourglassRefinement)
+          and model.segmentation.conv.out_channels == 19,
+          "23a: psmnet_hg on the 256-channel concat volume, 32 channels, hourglass, 19 classes")
+    model.to(dev)
+    out["offset_means_before"] = calm_offsets(torch, model, *small_pair())
+    quiet_refinement(torch, model)
+    serve = make_stereo_serving_fn(model, device=dev)
+    left, right = (v.to(dev) for v in stereo_pair(torch, gen, STEREO_BATCH, HEIGHT, WIDTH))
+    conv_in, start_in = FirstInput(first_conv), FirstInput(ref.conv_start)
+    results = {}
+    for layout, (xl, xr) in (("NHWC", (left, right)),
+                             ("s2d", (s2d_pack(left), s2d_pack(right)))):
+        reset23()
+        disp, labels = serve(xl, xr)
+        torch.cuda.synchronize()
+        got = read()
+        got["k1_tc"] = head_fn.tc_launches
+        results[layout] = (disp, labels)
+        if layout == "NHWC":
+            out["launches_a"] = got
+        log(f"  {layout} {tuple(xl.shape)}: disparity {tuple(disp.shape)} {disp.dtype} in "
+            f"[{disp.min().item():.3f}, {disp.max().item():.3f}], labels {tuple(labels.shape)} "
+            f"{labels.dtype}; launches {got}")
+        check(got["fused_stem_pool"] == 3 and got["fused_stem_pool_tc"] == 3
+              and got["fused_seghead_upsample_argmax"] == 1 and got["k1_tc"] == 1
+              and all(v == 0 for k, v in got.items() if k not in (
+                  "fused_stem_pool", "fused_stem_pool_tc", "fused_seghead_upsample_argmax",
+                  "k1_tc")),
+              f"23a: a stereo serving batch ({layout}) must launch K2 3 times and K1 once, "
+              f"on tensor cores, and nothing else")
+        check(disp.shape == labels.shape == (STEREO_BATCH, HEIGHT, WIDTH)
+              and disp.dtype == torch.float32 and labels.dtype == torch.int8
+              and torch.isfinite(disp).all().item() and 0 <= labels.min().item()
+              and labels.max().item() < 19, f"23a: outputs ({layout})")
+    disp, labels = results["NHWC"]
+    gap_layout = disp_gap(results["s2d"][0], disp)
+    same_labels = (results["s2d"][1] == labels).float().mean().item()
+    log(f"  s2d vs NHWC: |Δdisp| mean {gap_layout[0]:.3e} max {gap_layout[1]:.3e}, labels "
+        f"{same_labels:.6f}; mean |offset| before scaling to 1 px: "
+        f"{', '.join(f'{m:.2f}' for m in out['offset_means_before'])} px")
+    check(gap_layout[0] <= 1e-3 and same_labels >= 0.9999, "23a: s2d and NHWC disagree")
+    del results
+
+    plain = build_stereo_model(device="cpu", seed=23, dtype="bfloat16", fuse_stem=False, **kw)
+    plain.load_state_dict(model.state_dict())
+    plain.to(dev)
+    reset()
+    with torch.no_grad():
+        out_p, feat_p = plain.disparity(left, right)
+    torch.cuda.synchronize()
+    got = read()
+    gap = disp_gap(disp, out_p["disp"])
+    with torch.no_grad():
+        gap_low = disp_gap(model.disparity(left, right)[0]["disp_pyramid"][0],
+                           out_p["disp_pyramid"][0])
+    feat_p = feat_p.permute(0, 2, 3, 1).contiguous()
+    path = decided_agreement(torch, feat_p, model.segmentation, labels)
+    log(f"  {card}: 23a kernels (K2 x3, K1) vs the plain stem and head, same weights: "
+        f"|Δdisp| mean {gap[0]:.4f} px (bar {STEREO_DISP_BAR}), max {gap[1]:.4f} px (the "
+        f"aggregation's soft-argmin: mean {gap_low[0]:.4f}, max {gap_low[1]:.4f} px); labels: "
+        f"all pixels {path[0]:.6f}, decided pixels {path[1]:.6f} ({path[2]:.6f} of them; bar "
+        f"0.99); plain launches {got}")
+    check(not any(got.values()), "23a: the plain path launched a kernel")
+    check(gap[0] <= STEREO_DISP_BAR and path[2] >= 0.5 and path[1] >= 0.99,
+          "23a: the kernels' path disagrees with the plain path")
+    out["vs_plain"] = {"disp_mean_abs": gap[0], "disp_max_abs": gap[1],
+                       "aggregation_disp_mean_abs": gap_low[0], "label_agreement": path[0],
+                       "decided_agreement": path[1], "decided_share": path[2]}
+    del plain, out_p, feat_p
+
+    vol, = conv_in.args
+    x_start, = start_in.args
+    flops = 2 * vol.shape[0] * first_conv.out_channels * vol.shape[1] * 27 * vol[0, 0].numel()
+    with torch.no_grad():
+        out["conv3d_ms"] = cuda_ms(lambda: first_conv(vol), iters=5, warmup=1)
+        out["conv_start_ms"] = cuda_ms(lambda: ref.conv_start(x_start), iters=3, warmup=1)
+    out["conv3d_tflops"] = flops / out["conv3d_ms"] / 1e9
+    log(f"  {card}: the first Conv3d on the concat volume {tuple(vol.shape)} {vol.dtype} "
+        f"(channels_last_3d: {vol.is_contiguous(memory_format=torch.channels_last_3d)}) "
+        f"{out['conv3d_ms']:.3f} ms, {flops / 1e12:.3f} TFLOP, {out['conv3d_tflops']:.1f} "
+        f"TFLOP/s (bound at 989: {flops / 989e9:.3f} ms); deformable conv_start on "
+        f"{tuple(x_start.shape)} {x_start.dtype} (gather form) {out['conv_start_ms']:.3f} ms")
+    del vol, x_start, conv_in, start_in
+    # the batch by stage, each timed alone on the previous stage's output
+    with torch.no_grad():
+        both = torch.cat([left, right])
+        lf, rf = model.feature_extractor(both)[0].chunk(2)
+        vol = cost_volume(lf, rf, STEREO_MAX_DISP // 4, "concat")
+        costs = agg(vol)[-1]
+        low = soft_argmin_disparity(costs, match_similarity=False)
+        ln, rn = to_nhwc(left), to_nhwc(right)
+        stages = {"trunk (both views)": lambda: model.feature_extractor(both),
+                  "concat volume": lambda: cost_volume(lf, rf, STEREO_MAX_DISP // 4, "concat"),
+                  "psmnet_hg (3-D convs, x4 upsampling)": lambda: agg(vol),
+                  "soft-argmin": lambda: soft_argmin_disparity(costs, match_similarity=False),
+                  "hourglass refinement": lambda: ref(low, ln, rn)}
+        out["stage_ms"] = {k: cuda_ms(fn, iters=3, warmup=1) for k, fn in stages.items()}
+    del both, lf, rf, vol, costs, low, stages
+    log(f"  {card}: 23a stages alone, ms: "
+        f"{', '.join(f'{k} {v:.2f}' for k, v in out['stage_ms'].items())}")
+    for _ in range(3):
+        serve(left, right)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    windows = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            serve(left, right)
+        torch.cuda.synchronize()
+        windows.append(5 * STEREO_BATCH / (time.perf_counter() - t0))
+    got = read()
+    check(got["fused_stem_pool"] == 45 and got["fused_seghead_upsample_argmax"] == 15,
+          f"23a: 15 batches launch K2 45 and K1 15 times: {got}")
+    fps = 3 * 5 * STEREO_BATCH / sum(5 * STEREO_BATCH / f for f in windows)
+    out["fps"], out["fps_windows"] = fps, windows
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  {card}: 23a stereo serving {fps:.2f} frames/s (windows "
+        f"{', '.join(f'{f:.2f}' for f in windows)}), {1e3 * STEREO_BATCH / fps:.2f} ms a batch "
+        f"of {STEREO_BATCH}; peak memory {out['peak_gb']:.2f} GB")
+    del model, serve, left, right, disp, labels
+    torch.cuda.empty_cache()
+
+    log(f"== 23b. the other 3-D aggregations with stereodrnet, disparity only, "
+        f"{KITTI_GCNET[1]}x{KITTI_GCNET[0]}, batch 1, bf16")
+    out["kitti"] = {}
+    xl, xr = (v.to(dev) for v in stereo_pair(torch, gen, 1, *KITTI_GCNET))
+    for kind in ("stereonet", "psmnet_basic", "gcnet"):
+        model = build_stereo_model(device="cpu", seed=24, dtype="bfloat16",
+                                   max_disp=STEREO_MAX_DISP, aggregation_type=kind,
+                                   refinement_type="stereodrnet", train_semantic=False)
+        randomize_bn(model, gen)
+        model.to(dev)
+        serve = make_stereo_serving_fn(model, device=dev)
+        for _ in range(2):
+            serve(xl, xr)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            disp, labels = serve(xl, xr)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        got = read()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out["kitti"][kind] = {"ms": ms, "peak_gb": peak, "launches": got}
+        log(f"  {card}: 23b {kind}: {ms:.2f} ms a pair, peak memory {peak:.2f} GB, disparity "
+            f"in [{disp.min().item():.3f}, {disp.max().item():.3f}]")
+        expect_launches(got, f"23b {kind}, 5 pairs", k2=15)
+        check(labels is None and disp.shape == (1, *KITTI_GCNET)
+              and torch.isfinite(disp).all().item(), f"23b: {kind} outputs")
+        del model, serve, disp
+    torch.cuda.empty_cache()
+
+    log(f"== 23c. f32 {STEREO_SMALL[1]}x{STEREO_SMALL[0]}, batch 1: the card vs the CPU, each "
+        f"3-D aggregation and warp-error refinement")
+    out["f32"] = {}
+    for kind, refinement in STEREO_3D_PAIRS:
+        card_model = build_stereo_model(device="cpu", seed=25, dtype="float32",
+                                        max_disp=STEREO_MAX_DISP, aggregation_type=kind,
+                                        refinement_type=refinement, train_semantic=False)
+        randomize_bn(card_model, gen)
+        randomize_offsets(torch, card_model, gen)
+        card_model.to(dev)
+        xl, xr = small_pair()
+        if refinement == "hourglass":
+            calm_offsets(torch, card_model, xl, xr)
+        quiet_refinement(torch, card_model)
+        cpu_model = copy.deepcopy(card_model).cpu()
+        reset()
+        d_gpu, _ = make_stereo_serving_fn(card_model, device=dev)(xl, xr)
+        torch.cuda.synchronize()
+        got = read()
+        d_cpu, _ = make_stereo_serving_fn(cpu_model, device="cpu")(xl.cpu(), xr.cpu())
+        err = (d_gpu.cpu() - d_cpu).abs().max().item()
+        top = d_cpu.abs().max().item()
+        out["f32"][f"{kind} + {refinement}"] = {"disp_max_abs_err": err, "disp_max": top,
+                                                "launches": got}
+        log(f"  {kind} + {refinement}: disparity max abs err {err:.3e} of max {top:.3f} "
+            f"({err / top:.3e}; bar 1e-3)")
+        expect_launches(got, f"23c {kind} + {refinement} f32", k2=3, tc=0)
+        check(torch.isfinite(d_gpu).all().item() and err <= 1e-3 * top,
+              f"23c: {kind} + {refinement} on the card disagrees with the CPU")
+        del card_model, cpu_model
+    torch.cuda.empty_cache()
+
+    log(f"== 23d. inference --stereo --aggregation_type psmnet_hg --refinement_type hourglass: "
+        f"2 pairs of {KITTI_HW[1]}x{KITTI_HW[0]} padded to {KITTI_PAD[1]}x{KITTI_PAD[0]}, f32 "
+        f"and bf16")
+    oh, ow = KITTI_HW
+    ph, pw = KITTI_PAD
+    composition = ["--aggregation_type", "psmnet_hg", "--refinement_type", "hourglass"]
+    out["inference"] = {}
+    with tempfile.TemporaryDirectory() as base:
+        for side in ("left", "right"):
+            os.makedirs(os.path.join(base, side))
+        pairs = []
+        for i in range(2):
+            pair = [v[0].numpy() for v in stereo_pair(torch, gen, 1, oh, ow)]
+            for side, img in zip(("left", "right"), pair):
+                write_png(os.path.join(base, side, f"{i:06d}_10.png"), img)
+            pairs.append(pair)
+        for dtype in ("float32", "bfloat16"):
+            cfg = port_inference.build_parser().parse_args(
+                ["--stereo", "--input", base, "--compute_dtype", dtype] + composition)
+            model = build_stereo_model(cfg, device="cpu", seed=26)
+            randomize_bn(model, gen)
+            randomize_offsets(torch, model, gen)
+            model.to(dev)
+            calm_offsets(torch, model, *small_pair())
+            quiet_refinement(torch, model)   # also keeps the disparities inside 16 bits
+            ckpt = os.path.join(base, f"stereo_{dtype}.pt")
+            torch.save({"model": model.state_dict()}, ckpt)
+            reset()
+            res = port_inference.main([
+                "--stereo", "--input", os.path.join(base, "left"), "--right_input",
+                os.path.join(base, "right"), "--resume", ckpt, "--output_dir",
+                os.path.join(base, f"out_{dtype}"), "--val_img_height", str(ph),
+                "--val_img_width", str(pw), "--compute_dtype", dtype] + composition)
+            torch.cuda.synchronize()
+            got = read()
+            out["inference"][dtype] = {"launches": got}
+            tc = 6 if dtype == "bfloat16" else 0
+            expect_launches(got, f"23d inference --stereo {dtype}, 2 pairs", k2=6, tc=tc)
+            exact, within, clipped = [], [], []
+            for path, (lv, rv) in zip(res["paths"], pairs):
+                disk = read_png(path)
+                pad = ((ph - oh, 0), (0, pw - ow), (0, 0))
+                xl, xr = (torch.from_numpy(np.pad(v, pad)).to(dev, torch.float32)[None]
+                          for v in (lv, rv))
+                with torch.no_grad():
+                    d = model.disparity(xl, xr)[0]["disp"][0].cpu().numpy()
+                ref = np.clip(d[ph - oh:, :ow] * 256.0, 0, 65535).astype(np.uint16)
+                rt = os.path.join(base, "roundtrip.png")
+                write_png(rt, ref, "adaptive")
+                check(disk.dtype == np.uint16 and disk.shape == (oh, ow)
+                      and np.array_equal(read_png(rt), ref), "23d: 16-bit PNG round trip")
+                diff = np.abs(disk.astype(np.int32) - ref.astype(np.int32))
+                exact.append(float((diff == 0).mean()))
+                within.append(float((diff <= 1).mean()))
+                clipped.append(float(((ref == 0) | (ref == 65535)).mean()))
+            fps = 1.0 / float(np.mean(res["forward_s"][1:]))
+            out["inference"][dtype].update(fps=fps, forward_s=res["forward_s"], exact=exact,
+                                           within_1=within)
+            log(f"  {card}: 23d {dtype}: {fps:.2f} frames/s from the second pair "
+                f"(forward s {', '.join(f'{t:.4f}' for t in res['forward_s'])}); PNGs equal "
+                f"to the forward in process on {', '.join(f'{e:.6f}' for e in exact)} of the "
+                f"pixels, within 1 LSB on {', '.join(f'{e:.6f}' for e in within)} (bar "
+                f"0.999); clipped to 0 or 65535: {', '.join(f'{c:.4f}' for c in clipped)}")
+            check(min(within) >= 0.999 and max(clipped) < 0.5,
+                  f"23d: inference --stereo {dtype} disagrees with the forward")
+            del model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t23
+    log(f"  {card}: phase 23 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3709,6 +4087,20 @@ def main() -> int:
                             "tensor_core_launches": a22["k1_tc"],
                             "f32_cuda_core_launches": b22["k1_cc"], "ms": p22["k1_ms"],
                             "f32_label_agreement_vs_cpu": p22["f32"]["label_agreement"]}
+
+    # 23. the 3-D aggregations and the warp-error refinements
+    p23 = stereo_3d_phase(torch, dev, card, reset, read)
+    a23 = p23["launches_a"]
+    kernels[0]["stereo_3d"] = {
+        "launches_a_serving_batch": a23["fused_stem_pool"],
+        "tensor_core_launches": a23["fused_stem_pool_tc"],
+        "kitti_launches_5_pairs": {k: r["launches"]["fused_stem_pool"]
+                                   for k, r in p23["kitti"].items()},
+        "f32_launches": {k: r["launches"]["fused_stem_pool"] for k, r in p23["f32"].items()},
+        "inference_stereo_launches_2_pairs": {
+            dtype: r["launches"]["fused_stem_pool"] for dtype, r in p23["inference"].items()}}
+    kernels[1]["stereo_3d"] = {"launches_a_serving_batch": a23["fused_seghead_upsample_argmax"],
+                               "tensor_core_launches": a23["k1_tc"]}
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

@@ -57,6 +57,22 @@ def batch_norm(features: int, momentum: float = TORCH_BN_MOMENTUM,
     return TorchBatchNorm(features, momentum, eps)
 
 
+class TorchBatchNorm3d(nn.BatchNorm3d):
+    """``TorchBatchNorm`` over (B, C, D, H, W) volumes."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-5, momentum=TORCH_BN_MOMENTUM)
+
+    folded = TorchBatchNorm.folded
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return super().forward(x)
+        scale, shift = self.folded()
+        return torch.addcmul(shift.to(x.dtype)[:, None, None, None], x,
+                             scale.to(x.dtype)[:, None, None, None])
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` whose float32 parameters are cast to the input's dtype
     at the call."""
@@ -75,6 +91,39 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         return F.conv_transpose2d(x, self.weight.to(x.dtype), bias, self.stride,
                                   self.padding, self.output_padding, self.groups,
                                   self.dilation)
+
+
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` whose float32 parameters are cast to the input's dtype
+    at the call."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class ConvTranspose3d(nn.ConvTranspose3d):
+    """``nn.ConvTranspose3d`` whose float32 parameters are cast to the
+    input's dtype at the call."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose3d(x, self.weight.to(x.dtype), bias, self.stride,
+                                  self.padding, self.output_padding, self.groups,
+                                  self.dilation)
+
+
+def to_channels_last(module: nn.Module) -> nn.Module:
+    """``module`` with its 4-D parameters in ``channels_last`` memory and
+    its 5-D ones (3-D convs' weights) in ``channels_last_3d``, in place:
+    ``module.to(memory_format=torch.channels_last)`` refuses a 5-D
+    tensor."""
+    formats = {4: torch.channels_last, 5: torch.channels_last_3d}
+    with torch.no_grad():
+        for p in module.parameters():
+            if p.dim() in formats:
+                p.data = p.data.contiguous(memory_format=formats[p.dim()])
+    return module
 
 
 def conv_kxk(in_features: int, features: int, k: int = 3, stride: int = 1,
@@ -273,14 +322,14 @@ class SpatialPyramidPooling(nn.Module):
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Initialises parameters as the JAX package does, from ``generator``:
-    convs truncated-normal fan-out with gain 2 (flax ``variance_scaling(2,
+    convs (2-D and 3-D) truncated-normal fan-out with gain 2 (flax ``variance_scaling(2,
     "fan_out", "truncated_normal")``), dense layers lecun-normal with zero
     bias, BN scale 1 and bias 0, running mean 0 and var 1."""
     # std of a unit normal truncated to ±2, which variance_scaling divides out
     trunc_std = 0.87962566103423978
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-            fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Conv3d, nn.ConvTranspose3d)):
+            fan_out = m.out_channels * math.prod(m.kernel_size)
             std = math.sqrt(2.0 / fan_out) / trunc_std
             with torch.no_grad():
                 nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
@@ -293,5 +342,5 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
                                       generator=generator)
                 m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
             m.reset_parameters()

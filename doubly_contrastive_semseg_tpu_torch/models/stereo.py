@@ -24,11 +24,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.cost_volume import cost_volume_pyramid, soft_argmin_disparity
+from ..ops.cost_volume import cost_volume, cost_volume_pyramid, soft_argmin_disparity
 from ..ops.deform_conv import DeformConv2d
 from ..ops.input_pipeline import image_hw, to_nhwc
 from ..ops.interpolate import resize_bilinear
-from .blocks import BNReluConv, Conv2d, batch_norm, conv_kxk, init_weights
+from .blocks import BNReluConv, Conv2d, batch_norm, conv_kxk, init_weights, to_channels_last
 from .weathernet import _DTYPES, check_device, feature_extractor, nhwc
 
 
@@ -263,17 +263,24 @@ class SemanticGuidedRefinement(nn.Module):
 class StereoDCSS(nn.Module):
     """Joint disparity + semantics (the RODSNet configuration; JAX
     ``StereoDCSS``): one pass of the pyramid trunk over both views stacked
-    on the batch axis, the correlation volume at 1/4 resolution
-    (``max_disp // 4`` disparities), adaptive aggregation, soft-argmin, a
-    refinement, and with ``train_semantic`` the ``segmentation`` head on the
-    left view. Images are pixels in NHWC, planar or s2d layout
-    (``ops/input_pipeline.py::to_nhwc``). The refinement, as JAX routes it:
-    ``semantic`` with ``train_semantic`` → ``SemanticGuidedRefinement``; a
-    ``SemRefine`` variant (``REFINE_NEW_VARIANTS``) → ``SemRefine``;
-    ``stereodrnet`` and ``hourglass`` raise; anything else, ``semantic``
-    without ``train_semantic`` included, → ``StereoNetRefinement``.
-    ``fuse_stem`` (eval only) runs the trunk's and ``SemRefine``'s stems
-    through K2 (``ops/stem.py::fused_stem_pool``)."""
+    on the batch axis, a cost volume at 1/4 resolution (``max_disp // 4``
+    disparities), an aggregation, soft-argmin, a refinement, and with
+    ``train_semantic`` the ``segmentation`` head on the left view. Images
+    are pixels in NHWC, planar or s2d layout
+    (``ops/input_pipeline.py::to_nhwc``).
+
+    The aggregation: ``adaptive`` on the correlation volume; the 3-D ones
+    on the difference volume (``stereonet``: similarities) or the concat
+    volume (``psmnet_basic``, ``psmnet_hg``: costs upsampled ×4 to full
+    resolution, the last of ``psmnet_hg``'s list; ``gcnet``: costs at
+    twice the volume's resolution). The refinement, as JAX routes it:
+    ``semantic`` with ``train_semantic`` → ``SemanticGuidedRefinement``;
+    ``stereodrnet`` and ``hourglass`` → the warp-error refinements, given
+    both views; a ``SemRefine`` variant (``REFINE_NEW_VARIANTS``) →
+    ``SemRefine``; anything else, ``semantic`` without ``train_semantic``
+    included, → ``StereoNetRefinement``. ``fuse_stem`` (eval only) runs
+    the trunk's and ``SemRefine``'s stems through K2
+    (``ops/stem.py::fused_stem_pool``)."""
 
     def __init__(self, max_disp: int = 192, num_classes: int = 19, num_scales: int = 1,
                  backbone: str = "resnet18", aggregation_type: str = "adaptive",
@@ -281,25 +288,30 @@ class StereoDCSS(nn.Module):
                  deform_impl: str = "window", fuse_stem: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        from .stereo_extras import (REFINE_NEW_VARIANTS, UNPORTED_REFINEMENTS, make_aggregation,
-                                    make_refinement)
+        from .stereo_extras import REFINE_NEW_VARIANTS, make_aggregation, make_refinement
 
         if backbone not in ("resnet18", "resnet34", "efficientnetb0"):
             raise NotImplementedError(f"stereo backbone {backbone}")
-        if refinement_type in UNPORTED_REFINEMENTS:
-            make_refinement(refinement_type)                    # raises, naming item 5b
         self.max_disp, self.train_semantic = max_disp, train_semantic
-        self.refinement_type, self.dtype = refinement_type, dtype
+        self.aggregation_type, self.refinement_type = aggregation_type, refinement_type
+        self.dtype = dtype
         self.feature_extractor = feature_extractor(backbone, fuse_stem, efficient=False,
                                                    dtype=dtype)
-        # JAX's StereoDCSS aggregates one scale whatever num_scales says
-        self.aggregation = make_aggregation(aggregation_type, max_disp // 4, num_scales=1,
-                                            num_fusions=3, num_deform_blocks=2,
-                                            deform_impl=deform_impl)
+        if aggregation_type == "adaptive":
+            # JAX's StereoDCSS aggregates one scale whatever num_scales says
+            self.aggregation = make_aggregation(aggregation_type, max_disp // 4, num_scales=1,
+                                                num_fusions=3, num_deform_blocks=2,
+                                                deform_impl=deform_impl)
+        else:   # the difference volume has the 128 trunk channels, the concat one 256
+            self.aggregation = make_aggregation(
+                aggregation_type, max_disp, in_features=128 if aggregation_type == "stereonet"
+                else 256)
         if train_semantic:
             self.segmentation = BNReluConv(128, num_classes, k=1, bias=True)
         if refinement_type == "semantic" and train_semantic:
             self.refinement = SemanticGuidedRefinement(128, dtype=dtype)
+        elif refinement_type in ("stereodrnet", "hourglass"):
+            self.refinement = make_refinement(refinement_type, dtype=dtype)
         elif refinement_type in REFINE_NEW_VARIANTS:
             # JAX feeds every variant the (B, h, w) disparity: one channel
             self.refinement = make_refinement(refinement_type, dtype=dtype,
@@ -307,22 +319,38 @@ class StereoDCSS(nn.Module):
         else:
             self.refinement = StereoNetRefinement(dtype=dtype)
 
+    def aggregate(self, left_feat: torch.Tensor, right_feat: torch.Tensor) -> torch.Tensor:
+        """The soft-argmin disparity (B, h', w') float32 of the aggregated
+        volume, in the pixels of its resolution (1/4 for ``adaptive`` and
+        ``stereonet``, 1/2 for ``gcnet``, full for the PSMNets)."""
+        d = self.max_disp // 4
+        if self.aggregation_type == "adaptive":
+            vols = cost_volume_pyramid([left_feat], [right_feat], d, "correlation")
+            return soft_argmin_disparity(self.aggregation(vols)[0])
+        stereonet = self.aggregation_type == "stereonet"
+        vol = cost_volume(left_feat, right_feat, d, "difference" if stereonet else "concat")
+        out = self.aggregation(vol)
+        if isinstance(out, list):   # psmnet_hg: the last classifier's
+            out = out[-1]
+        return soft_argmin_disparity(out, match_similarity=stereonet)
+
     def disparity(self, left: torch.Tensor, right: torch.Tensor):
         """(outputs, left features): the ``disp_pyramid`` and ``disp`` (and
         a ``SemRefine``'s ``sem_refined``) outputs, and the left view's
         (B, 128, h, w) trunk features; the seg head does not run."""
-        from .stereo_extras import SemRefine
+        from .stereo_extras import HourglassRefinement, SemRefine, StereoDRNetRefinement
 
         feat, _ = self.feature_extractor(torch.cat([left, right], dim=0))
         left_feat, right_feat = feat.chunk(2, dim=0)
-        vols = cost_volume_pyramid([left_feat], [right_feat], self.max_disp // 4, "correlation")
-        disp_low = soft_argmin_disparity(self.aggregation(vols)[0])      # (B, h, w), 1/4 px
+        disp_low = self.aggregate(left_feat, right_feat)
         out: Dict[str, object] = {"disp_pyramid": [disp_low]}
         if isinstance(self.refinement, SemRefine):
             # SemRefine's stem reads the raw image in any layout
             out["disp"], out["sem_refined"] = self.refinement(disp_low, left, left_feat)
         elif isinstance(self.refinement, SemanticGuidedRefinement):
             out["disp"] = self.refinement(disp_low, to_nhwc(left), left_feat)
+        elif isinstance(self.refinement, (StereoDRNetRefinement, HourglassRefinement)):
+            out["disp"] = self.refinement(disp_low, to_nhwc(left), to_nhwc(right))
         else:
             out["disp"] = self.refinement(disp_low, to_nhwc(left))
         return out, left_feat
@@ -352,8 +380,8 @@ def build_stereo_model(cfg=None, device="cuda", seed: int = 0, **kwargs) -> Ster
     arguments (``StereoDCSS``'s, ``dtype`` as a name or a torch dtype).
     Weights are drawn from a ``torch.Generator`` seeded by ``seed`` as
     ``init_weights`` draws them; the offset convs stay at zero. The model
-    is returned in eval mode, ``channels_last``. Runs on the card unless
-    ``device`` asks for the CPU."""
+    is returned in eval mode, ``channels_last`` (``channels_last_3d`` for
+    the 3-D convs). Runs on the card unless ``device`` asks for the CPU."""
     device = check_device(device, "build_stereo_model")
     kw = stereo_kwargs(cfg) if cfg is not None else {}
     kw.update(kwargs)
@@ -365,5 +393,5 @@ def build_stereo_model(cfg=None, device="cuda", seed: int = 0, **kwargs) -> Ster
         for m in model.modules():
             if isinstance(m, DeformConv2d):
                 m.reset_offsets()
-    return model.to(device=device, memory_format=torch.channels_last).eval()
+    return to_channels_last(model.to(device)).eval()
 

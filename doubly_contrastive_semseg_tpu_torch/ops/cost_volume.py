@@ -8,8 +8,8 @@ The correlation volume is (B, D, H, W): the disparity axis is the channel
 axis the aggregation's convolutions read (JAX's (B, H, W, D) with D last).
 The difference and concat volumes are NCDHW, (B, C, D, H, W) and
 (B, 2C, D, H, W), the layout of torch's 3-D convolutions (JAX's
-(B, H, W, D, C)). Disparity ``d`` pairs left column x with right column
-x − d, zero where x − d < 0.
+(B, H, W, D, C)), in ``channels_last_3d`` memory. Disparity ``d`` pairs
+left column x with right column x − d, zero where x − d < 0.
 """
 
 from __future__ import annotations
@@ -64,18 +64,38 @@ def correlation_cost_volume(left: torch.Tensor, right: torch.Tensor,
     return out.to(left.dtype).permute(0, 3, 1, 2)
 
 
+def _volume_3d(left: torch.Tensor, right: torch.Tensor, max_disp: int,
+               concat: bool) -> torch.Tensor:
+    """The difference (``concat`` false) or concat volume, written plane by
+    plane into one (B, D, H, W, C') tensor and returned as its (B, C', D,
+    H, W) view, ``channels_last_3d``: the layout cuDNN's 3-D convolutions
+    take, and no second copy of the volume is ever held."""
+    b, c, h, w = left.shape
+    lt, rt = left.permute(0, 2, 3, 1), right.permute(0, 2, 3, 1)    # NHWC views
+    vol = left.new_empty((b, max_disp, h, w, 2 * c if concat else c))
+    for d in range(max_disp):
+        plane, m = vol[:, d], min(d, w)
+        if concat:
+            plane[..., :c] = lt
+            plane[:, :, :m, c:] = 0
+            plane[:, :, m:, c:] = rt[:, :, :w - m]
+        else:
+            plane.copy_(lt)
+            plane[:, :, m:] -= rt[:, :, :w - m]
+    return vol.permute(0, 4, 1, 2, 3)
+
+
 def difference_cost_volume(left: torch.Tensor, right: torch.Tensor,
                            max_disp: int) -> torch.Tensor:
     """(B, C, D, H, W): left − d-shifted right (reference 'difference')."""
-    return torch.stack([left - _shift_right_img(right, d) for d in range(max_disp)], dim=2)
+    return _volume_3d(left, right, max_disp, concat=False)
 
 
 def concat_cost_volume(left: torch.Tensor, right: torch.Tensor,
                        max_disp: int) -> torch.Tensor:
     """(B, 2C, D, H, W): left and d-shifted right on the channel axis
     (reference 'concat')."""
-    return torch.stack([torch.cat([left, _shift_right_img(right, d)], dim=1)
-                        for d in range(max_disp)], dim=2)
+    return _volume_3d(left, right, max_disp, concat=True)
 
 
 def cost_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,

@@ -27,8 +27,17 @@ lands on the port's under the reference's names: the aggregation's
 and ``bias`` → ``deform_conv.{weight,bias}``; ``SemRefine``'s ``bn0`` →
 ``bn``, ``enc_{img,disp,sem}`` → ``conv{1,2,3}.{0,1}``, the Dense gates
 ``{sem,disp}_att`` → the 1×1 convs ``{sem,disp}_attention.1``,
-``final_{disp,sem}`` → ``final_conv_{disp,sem}``. A tree of gradients
-maps like a tree of parameters.
+``final_{disp,sem}`` → ``final_conv_{disp,sem}``; ``HourglassRefinement``'s
+``conv{1,2}/{conv,bn}`` → ``conv{1,2}.{0,1}``, ``final`` → ``final_conv``;
+``PSMNetHGAggregation``'s ``dres{0,1}_{0,1}`` → ``dres{0,1}.{0,2}``,
+``hg{1,2,3}/convK`` → ``dres{2,3,4}.convK`` (``.0`` where a ReLU follows:
+``conv1``, ``conv3``, ``conv4``), ``classifI_{0,1}`` → ``classifI.{0,2}``,
+each ``Conv3D``'s ``conv``, ``bn`` → ``0``, ``1``. The other 3-D
+aggregations and ``StereoDRNetRefinement`` keep JAX's names. A 3-D kernel
+(kD, kH, kW, I, O) → (O, I, kD, kH, kW); a 3-D transposed conv's (the
+hourglass's ``conv5``, ``conv6``, GCNet's ``trans1..5``) flipped kernel →
+torch's (I, O, kD, kH, kW). A tree of gradients maps like a tree of
+parameters.
 """
 
 from __future__ import annotations
@@ -227,6 +236,29 @@ def _aggregation(path: Tuple[str, ...]) -> str:
     return f"fusions.{f}.fuse_layers.{i}.{j}.{seq}" + ("0" if kind == "conv" else "1")
 
 
+_HOURGLASS_ENCODERS = {"conv": "0", "bn": "1"}
+
+
+def _hourglass_refine(path: Tuple[str, ...]) -> str:
+    """JAX ``HourglassRefinement``'s module → the reference's name."""
+    if path[0] in ("conv1", "conv2") and len(path) == 2:   # a ConvBNLRelu
+        return f"{path[0]}.{_HOURGLASS_ENCODERS[path[1]]}"
+    return ".".join(("final_conv" if path[0] == "final" else path[0],) + path[1:])
+
+
+def _psmnet_hg(path: Tuple[str, ...]) -> str:
+    """JAX ``PSMNetHGAggregation``'s module → the reference's name."""
+    top = path[0]
+    m = re.fullmatch(r"(dres[01]|classif\d)_(\d)", top)
+    if m:   # a Sequential: conv-BN pairs at 0 and 2 (dres), the bare conv at 2 (classif)
+        seq = f"{m.group(1)}.{2 * int(m.group(2))}"
+        return seq if len(path) == 1 else f"{seq}.{_HOURGLASS_ENCODERS[path[1]]}"
+    hg, conv, part = path
+    relu_after = conv in ("conv1", "conv3", "conv4")
+    return (f"dres{int(hg[2:]) + 1}.{conv}" + (".0" if relu_after else "")
+            + f".{_HOURGLASS_ENCODERS[part]}")
+
+
 def _module_name(path: Tuple[str, ...], params: Mapping) -> str:
     """The port's dotted module name of the JAX module at ``path``; the
     family and the branches it takes are read off ``params`` (a params or a
@@ -245,10 +277,14 @@ def _module_name(path: Tuple[str, ...], params: Mapping) -> str:
         return _deeplab_head(path[1:], "project" in params["classifier"])
     if top == "feature_extractor":   # StereoDCSS's trunk
         return "feature_extractor." + _feature_extractor(path[1:], params[top])
-    if top == "aggregation":
+    if top == "aggregation" and "hg1" in params[top]:
+        return "aggregation." + _psmnet_hg(path[1:])
+    if top == "aggregation" and "fusion0" in params[top]:
         return "aggregation." + _aggregation(path[1:])
     if top == "refinement" and "enc_img" in params[top]:
         return "refinement." + _sem_refine(path[1:])
+    if top == "refinement" and "conv1a" in params[top]:
+        return "refinement." + _hourglass_refine(path[1:])
     if top != "backbone":   # a block's own tree
         return ".".join(_torch_module_name(p) for p in path)
     backbone = params["backbone"]
@@ -273,7 +309,17 @@ def _is_transposed(path) -> bool:
             or (path[-2:] == ("conv1", "conv") and path[-3].startswith("deconv")))
 
 
+def _is_transposed_3d(path) -> bool:
+    """The hourglass's ``conv5``, ``conv6`` and GCNet's ``trans1..5``."""
+    return (path[-1] == "trans5"
+            or (path[-1] == "conv" and re.fullmatch(r"conv[56]|trans\d", path[-2]) is not None))
+
+
 def _weight(path, value: np.ndarray) -> np.ndarray:
+    if value.ndim == 5:
+        if _is_transposed_3d(path):   # un-flip, (I, O, kD, kH, kW)
+            return value[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
+        return value.transpose(4, 3, 0, 1, 2)
     if path[-2:] == ("feature_extractor", "conv1"):   # masked: the dense 7×7
         value = stem_dense_kernel_from_s2d(value)
     elif path[-1] == "stem_conv":                       # unmasked: the dense 4×4

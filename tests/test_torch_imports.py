@@ -98,8 +98,8 @@ def test_every_module_imports_without_jax(guarded):
     assert failed == {}, "\n".join(f"{name}: {err}" for name, err in sorted(failed.items()))
 
 
-STEREO = ("ops.cost_volume", "ops.deform_conv", "models.stereo", "models.stereo_extras",
-          "models.serving", "inference")
+STEREO = ("ops.cost_volume", "ops.deform_conv", "ops.warp", "models.stereo",
+          "models.stereo_extras", "models.serving", "inference")
 
 
 @pytest.mark.parametrize("name", STEREO)

@@ -254,19 +254,3 @@ def test_build_stereo_model_keeps_offsets_at_zero():
     again = stereo.build_stereo_model(device="cpu", dtype="float32", seed=3)
     assert all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
                                                   again.state_dict().values()))
-
-
-@pytest.mark.parametrize("kind", ["stereonet", "psmnet_basic", "psmnet_hg", "gcnet"])
-def test_unported_aggregations_raise(kind):
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        stereo.StereoDCSS(aggregation_type=kind)
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        stereo_extras.make_aggregation(kind, 48)
-
-
-@pytest.mark.parametrize("kind", ["stereodrnet", "hourglass"])
-def test_unported_refinements_raise(kind):
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        stereo.StereoDCSS(refinement_type=kind)
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        stereo_extras.make_refinement(kind)
