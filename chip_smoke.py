@@ -72,14 +72,14 @@ and space-to-depth layouts.
 Then the default input path (``host_augment=True``), all of it host code:
 the times on the card's host of ``read_png`` on a 1080×1920 frame by PNG
 filter, the crop-and-scale at three box scales and the chamfer EDT weights
-of a 768² crop (phase 14, ``tools/profile_host_data.py``); three epochs of
-2 flagship steps (4 loader threads, 4, then 1) fed by the synthetic
+of a 768² crop (phase 14, ``tools/profile_host_data.py``); two epochs of
+2 flagship steps (4 loader threads, then 1) fed by the synthetic
 1024×2048 dataset through the host train transforms (768² crops, two
 views, EDT weights on the host, no kernel launched), timed by stage (phase
 15); and an ACDC tree of 1080×1920 PNGs written with ``write_png`` (every
 frame with the five filters in turns down its rows, night frames, the
-file lists), read back exactly, trained on for two epochs of 2 steps (4
-loader threads, then 1) through ``get_dataset("acdc")`` with gamma on, K2
+file lists), read back exactly, trained on for an epoch of 2 steps (1
+loader thread) through ``get_dataset("acdc")`` with gamma on, K2
 held to its plain version at the levels of 1920×1080 batches of 8 and 4,
 and the val split through ``make_eval_step`` into the ``Evaluator``, K2
 launching 3 times a batch (phase 16).
@@ -162,7 +162,7 @@ logged (``--rescue_interval 2``), and the resume from its rescue
 checkpoint: the rescue is mid-epoch at ``num_iter`` 2, the resume trains
 epoch 0's last 2 steps and epoch 1's 4 on exactly the uninterrupted run's
 samples, JF 88 times a step, within stated tolerances of its losses and
-parameters (a); ``main --tsne`` on the flagship over 48 whole frames,
+parameters (a); ``main --tsne`` on the flagship over 24 whole frames,
 image mode, K2 3 times a batch, ``tsne.png`` (or, without sklearn or
 matplotlib, ``run`` raising ``ImportError`` naming it), the feature pass in
 both modes and one batch's features card vs CPU at f32 (b);
@@ -200,6 +200,30 @@ padded to GCNet's multiple of 64), batch 1, bf16: ms a pair, peak memory
 (b); f32 at 512×256 card vs CPU, each aggregation and each refinement (c);
 ``inference --stereo`` with ``psmnet_hg`` and ``hourglass`` on the KITTI-
 sized pairs at f32 and bf16 (d).
+
+Then stereo training (phase 24), on trees the script renders into a
+temporary directory (right views rendered from the left by a disparity
+that grows down the rows): ``main --dataset sceneflow --criterion none``
+at the defaults (``StereoDCSS`` resnet18, max_disp 192, adaptive
+aggregation with window deformable convs, the StereoNet refinement, bf16;
+24 + 8 PNG pairs of 960×540 with PFM disparities of both byte orders;
+288×576 crops at batch 8, validation at 960×576, 2 epochs), then its
+``--continue_training`` resume (the next epoch, ``best_epe`` restored) and
+``--test_only`` (no checkpoint written) (a); ``main --dataset kitti_2015
+--train_semantic --resume`` (a)'s best checkpoint, the semantic-guided
+refinement and the seg head on 16 + 8 pairs of 1242×375 with 16-bit
+disparity PNGs (30 % valid) and Cityscapes-id labels (b); 3 steps of
+``make_stereo_train_step`` for each 3-D aggregation at 512×256 × 2 bf16 (c);
+one f32 step at 256×128 × 2 on the card against the CPU (losses,
+disparity, BN statistics, the gate-free gradients) and blocks with the
+CPU's ReLU gates forced, the StereoNet 3-D aggregation among them (d);
+``inference --stereo --resume`` (b)'s checkpoint on two KITTI pairs at
+bf16 and f32, its PNGs against the forward in process (e). K2 launches 3
+times a val batch and an inference pair, on tensor cores at bf16, and
+never in a train step; it is held against ``stem_pool_reference`` on
+each route at the levels of the val batches (a, b) and of the inference
+pairs (e); ms a step with the loader's wait, EPE, D1 and >1 px, peak
+memory.
 
 Any failure raises and exits non-zero; so does a machine without CUDA or a
 directory without the package. The last line is ``{"ok": true, "device":
@@ -1233,9 +1257,9 @@ def host_augment_phase(torch, dev):
     log(f"== 15. host-augmented flagship train step: synthetic {SYNTHETIC_HW} frames (size "
         f"{HOST_SIZE}), host crops {TRAIN_CROP}², batch {cfg.batch_size} x 2 views, "
         f"{cfg.compute_dtype}, {CRITERION}; epoch 0 generates the frames with 4 loader "
-        "threads, epochs 1 and 2 find them cached, with 4 threads and with 1")
+        "threads, epoch 1 finds them cached, with 1")
     train_dst, _ = get_dataset(cfg, seed=cfg.random_seed)
-    host_fed_steps(torch, dev, cfg, train_dst, "host-augmented synthetic", workers=(4, 4, 1))
+    host_fed_steps(torch, dev, cfg, train_dst, "host-augmented synthetic", workers=(4, 1))
 
 
 def acdc_phase(torch, dev, profile_host_data, profile_stem):
@@ -1267,7 +1291,7 @@ def acdc_phase(torch, dev, profile_host_data, profile_stem):
               and cfg.val_wh == (VAL_WIDTH, VAL_HEIGHT), "the ACDC phase's recipe")
         train_dst, val_dst = get_dataset(cfg, seed=cfg.random_seed)
         check(len(train_dst) == ACDC_TRAIN and len(val_dst) == ACDC_VAL, "the ACDC lists")
-        model = host_fed_steps(torch, dev, cfg, train_dst, "ACDC from PNG", workers=(4, 1))
+        model = host_fed_steps(torch, dev, cfg, train_dst, "ACDC from PNG", workers=(1,))
 
         check(cfg.val_batch_size == 8 and ACDC_VAL == 12, "the val batches of 8 and 4")
         log("  K2 at the shapes this val split gives it (the levels of 1920x1080 batches "
@@ -2773,7 +2797,7 @@ def new_datasets_phase(torch, dev, card, reset, read, profile_host_data, profile
 
 
 GRAIN_SIZE = 32                        # 21a: 4 steps of main's batch 8 an epoch
-TSNE_SIZE = 48                         # 21b: 6 batches of 8, 48 image features
+TSNE_SIZE = 24                         # 21b: 3 batches of 8, 24 image features
 ADAM_STEP_BOUND = 0.1 / 0.001 ** 0.5   # |Adam update| <= lr (1 - b1) / sqrt(1 - b2)
 
 
@@ -2787,7 +2811,7 @@ def grain_tools_phase(torch, dev, card, reset, read, libs):
     num_iter 2, the resume trains epoch 0's last 2 steps then epoch 1's 4 on
     exactly the uninterrupted run's samples, JF 88 times a step, and ends
     within the stated tolerances of the uninterrupted run's losses and
-    parameters; (b) ``main --tsne`` (image mode, 48 frames): K2 3 times a
+    parameters; (b) ``main --tsne`` (image mode, 24 frames): K2 3 times a
     batch, ``tsne.png`` where sklearn and matplotlib import (else ``run``
     must raise ``ImportError`` naming the missing one, and the feature pass
     runs in both modes), one batch's features card vs CPU at f32; (c)
@@ -3746,6 +3770,466 @@ def stereo_3d_phase(torch, dev, card, reset, read):
     return out
 
 
+SCENEFLOW_HW, SF_TRAIN, SF_VAL = (540, 960), 24, 8   # 24a: 3 steps an epoch, 1 val batch
+KITTI_TRAIN, KITTI_VAL = 16, 8                        # 24b: 2 steps, 1 val batch
+STEREO_TRAIN_BATCH = 8                                # main's default --batch_size
+STEREO_STEP = (2, 256, 512)                           # 24c: batch, h, w (GCNet: multiples of 64)
+STEREO_CPU_STEP = (2, 128, 256)                       # 24d: f32 card vs CPU
+STEREO_24C = (("stereonet", "stereodrnet"), ("psmnet_basic", "hourglass"),
+              ("psmnet_hg", "stereonet"), ("gcnet", "stereodrnet"))
+
+
+def write_pfm(path, img, little_endian: bool) -> None:
+    """A grey PFM file (``Pf``) of ``img`` (H, W), rows bottom to top; the
+    scale's sign gives the byte order."""
+    with open(path, "wb") as f:
+        f.write(f"Pf\n{img.shape[1]} {img.shape[0]}\n{-1.0 if little_endian else 1.0}\n"
+                .encode("ascii"))
+        f.write(np.flipud(img).astype("<f4" if little_endian else ">f4").tobytes())
+
+
+def rendered_pair(torch, gen, hw, d_low, d_high):
+    """(left, right) uint8 (H, W, 3) and the left view's disparity (H, W)
+    float32: a smooth texture with fine grain, a disparity that grows down
+    the rows (a ground plane, d_low to d_high), and the right view rendered
+    from the left by it, right[y, x] = left[y, x + d(y)] (bilinear, zeros
+    past the frame)."""
+    import torch.nn.functional as F
+
+    h, w = hw
+    coarse = torch.rand(1, 3, h // 8 + 2, w // 8 + 2, generator=gen) * 255
+    left = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
+    left = (left + torch.randn(1, 3, h, w, generator=gen) * 24).clamp(0, 255).round()
+    top = d_low + torch.rand((), generator=gen).item() * (d_high - d_low) / 2
+    rows = top + torch.linspace(0, 1, h) * (d_high - top) * torch.rand((), generator=gen).item()
+    disp = rows[:, None].expand(h, w).contiguous()
+    xs = torch.arange(w, dtype=torch.float32)[None, :] + disp
+    grid = torch.stack([xs / (w - 1) * 2 - 1,
+                        torch.linspace(-1, 1, h)[:, None].expand(h, w)], dim=-1)[None]
+    right = F.grid_sample(left, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+    as_u8 = lambda x: x[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()  # noqa: E731
+    return as_u8(left), as_u8(right), disp.numpy().astype(np.float32)
+
+
+def write_stereo_trees(torch, base, gen):
+    """``<base>/sceneflow``: ``SF_TRAIN`` + ``SF_VAL`` PNG pairs of
+    ``SCENEFLOW_HW`` with PFM disparities (little- and big-endian in turns);
+    ``<base>/kitti_2015``: ``KITTI_TRAIN`` + ``KITTI_VAL`` pairs of
+    ``KITTI_HW`` with 16-bit disparity PNGs (v = 256 d, about 30 % of the
+    pixels valid, 0 elsewhere) and Cityscapes-id label PNGs; the lists
+    under ``<base>/filenames``. Returns the seconds it took."""
+    from doubly_contrastive_semseg_tpu_torch.data.png import write_png
+
+    t0 = time.perf_counter()
+    lists = {}
+
+    def put(root, rel, img):
+        os.makedirs(os.path.join(base, root, os.path.dirname(rel)), exist_ok=True)
+        write_png(os.path.join(base, root, rel), img)
+
+    for split, n in (("train", SF_TRAIN), ("val", SF_VAL)):
+        for i in range(n):
+            left, right, disp = rendered_pair(torch, gen, SCENEFLOW_HW, 4.0, 150.0)
+            stem = f"frames_finalpass/{split.upper()}/A/{i:04d}"
+            rel_d = f"disparity/{split.upper()}/A/{i:04d}/left/0006.pfm"
+            put("sceneflow", f"{stem}/left/0006.png", left)
+            put("sceneflow", f"{stem}/right/0006.png", right)
+            os.makedirs(os.path.join(base, "sceneflow", os.path.dirname(rel_d)), exist_ok=True)
+            write_pfm(os.path.join(base, "sceneflow", rel_d), disp, little_endian=i % 2 == 0)
+            lists.setdefault(("sceneflow", f"SceneFlow_finalpass_{split}"), []).append(
+                f"{stem}/left/0006.png {stem}/right/0006.png {rel_d}")
+    for split, n in (("train", KITTI_TRAIN), ("val", KITTI_VAL)):
+        for i in range(n):
+            left, right, disp = rendered_pair(torch, gen, KITTI_HW, 2.0, 100.0)
+            raw = np.round(disp * 256).astype(np.uint16)
+            raw[torch.rand(KITTI_HW, generator=gen).numpy() > 0.3] = 0
+            ids = torch.randint(0, 34, (KITTI_HW[0] // 25 + 1, KITTI_HW[1] // 25 + 1),
+                                generator=gen).numpy().astype(np.uint8)
+            ids = np.repeat(np.repeat(ids, 25, 0), 25, 1)[:KITTI_HW[0], :KITTI_HW[1]]
+            name = f"{split}_{i:06d}_10.png"
+            for sub, img in (("image_2", left), ("image_3", right), ("disp_occ_0", raw),
+                             ("semantic", np.ascontiguousarray(ids))):
+                put("kitti_2015", f"training/{sub}/{name}", img)
+            lists.setdefault(("kitti_2015", f"KITTI_2015_{split}"), []).append(
+                " ".join(f"training/{sub}/{name}"
+                         for sub in ("image_2", "image_3", "disp_occ_0", "semantic")))
+    for (sub, name), lines in lists.items():
+        os.makedirs(os.path.join(base, "filenames", sub), exist_ok=True)
+        with open(os.path.join(base, "filenames", sub, f"{name}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def stereo_calls(torch, read):
+    """Wraps ``StereoTrainer.train`` and ``.validate``: for each call, the
+    kernels it launched, its wall seconds (synchronised), the trainer's
+    epoch, ``best_epe`` and ``num_iter`` at its start, and its result."""
+    from doubly_contrastive_semseg_tpu_torch.train.trainer_stereo import StereoTrainer
+
+    real = {"train": StereoTrainer.train, "validate": StereoTrainer.validate}
+    calls = []
+
+    def wrap(name):
+        def run(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            before = read()
+            start = {"what": name, "epoch": self.cur_epochs, "best_epe": self.best_epe,
+                     "num_iter": self.num_iter}
+            t0 = time.perf_counter()
+            res = real[name](self, *args, **kwargs)
+            torch.cuda.synchronize()
+            after = read()
+            calls.append({**start, "s": time.perf_counter() - t0, "result": res,
+                          "launches": {k: after[k] - before[k] for k in after}})
+            return res
+        return run
+
+    StereoTrainer.train, StereoTrainer.validate = wrap("train"), wrap("validate")
+    try:
+        yield calls
+    finally:
+        StereoTrainer.train, StereoTrainer.validate = real["train"], real["validate"]
+
+
+def stereo_step_log(calls, tr, what):
+    """Checks the K2 launches of each train (0) and validate (3 a val
+    batch on tensor cores) call; returns the step, wait and val figures."""
+    for c in calls:
+        k2 = 0 if c["what"] == "train" else 3 * len(tr.val_loader)
+        expect_launches(c["launches"], f"{what} {c['what']} (epoch {c['epoch']})", k2=k2)
+    steps = tr.step_times[1:]          # the first step tunes cuDNN
+    return {"ms_step": 1e3 * float(np.mean([s for _, _, s in steps])) if steps else None,
+            "ms_wait": 1e3 * float(np.mean([w for _, w, _ in steps])) if steps else None,
+            "steps": len(tr.step_times), "val_batches": len(tr.val_loader),
+            "val": [c["result"] for c in calls if c["what"] == "validate"],
+            "val_s": [c["s"] for c in calls if c["what"] == "validate"],
+            "k2": {what: [c["launches"]["fused_stem_pool"] for c in calls if c["what"] == what]
+                   for what in ("train", "validate")}}
+
+
+def stereo_train_phase(torch, dev, card, reset, read):
+    """24. Stereo training through ``main`` and ``make_stereo_train_step``
+    (module docstring): (a) ``--dataset sceneflow`` at the defaults on a
+    rendered tree, 2 epochs, a ``--continue_training`` resume and
+    ``--test_only``; (b) ``kitti_2015 --train_semantic`` from (a)'s best
+    checkpoint; (c) 3 steps of each 3-D aggregation; (d) f32 card vs CPU,
+    whole step and block by block; (e) ``inference --stereo --resume`` on
+    (b)'s checkpoint. K2 launches 3 times a val batch and an inference
+    pair, on tensor cores at bf16, and never in a train step. Returns the
+    launches and figures for the kernels line."""
+    from doubly_contrastive_semseg_tpu_torch import build_stereo_model
+    from doubly_contrastive_semseg_tpu_torch import inference as port_inference
+    from doubly_contrastive_semseg_tpu_torch.config import parse_args
+    from doubly_contrastive_semseg_tpu_torch.data.png import read_png, write_png
+    from doubly_contrastive_semseg_tpu_torch.main import main as port_main
+    from doubly_contrastive_semseg_tpu_torch.models.stereo import (
+        DeformSimpleBottleneck, SemanticGuidedRefinement, StereoNetRefinement)
+    from doubly_contrastive_semseg_tpu_torch.ops.input_pipeline import pyramid_hw
+    from doubly_contrastive_semseg_tpu_torch.tools import profile_stem
+    from doubly_contrastive_semseg_tpu_torch.train import (
+        TrainState, build_stereo_optimizer, make_stereo_train_step, stereo_loss)
+
+    t24 = time.perf_counter()
+    gen = torch.Generator().manual_seed(24)
+    gen_k2 = torch.Generator().manual_seed(2424)
+    out = {}
+
+    def k2_at(what, batches):
+        """K2 on each route against ``stem_pool_reference`` at the pyramid
+        levels of the (pairs, h, w) batches ``what`` gave it: the trunk runs
+        over both views, 2 x pairs frames."""
+        shapes = [(2 * n,) + pyramid_hw(h, w, lv) for n, h, w in batches for lv in range(3)]
+        log(f"  K2 at {what}'s levels vs stem_pool_reference:")
+        profile_stem.check_routes(gen_k2, dev, log, shapes=shapes)
+        return shapes
+
+    def val_batches(tr):
+        """The (pairs, h, w) of each distinct batch of ``tr``'s val loader."""
+        n, bs = len(tr.val_dst), tr.val_loader.batch_size
+        h, w = tr.val_dst[0]["left"].shape[:2]
+        return sorted({(min(bs, n - i), h, w) for i in range(0, n, bs)})
+    with tempfile.TemporaryDirectory() as base:
+        tree_s = write_stereo_trees(torch, base, gen)
+        log(f"== 24. stereo training. Trees written in {tree_s:.1f} s: SceneFlow {SF_TRAIN} + "
+            f"{SF_VAL} pairs of {SCENEFLOW_HW[1]}x{SCENEFLOW_HW[0]} (PFM disparity, both byte "
+            f"orders), KITTI {KITTI_TRAIN} + {KITTI_VAL} pairs of {KITTI_HW[1]}x{KITTI_HW[0]} "
+            "(16-bit disparity PNGs, 30 % valid; Cityscapes-id labels); right views rendered "
+            "from the left by the disparity")
+        common = ["--data_root", base, "--filelist_root", os.path.join(base, "filenames"),
+                  "--criterion", "none", "--print_freq", "1", "--no_build_summary",
+                  "--batch_size", str(STEREO_TRAIN_BATCH), "--device", dev.type]
+
+        # a. sceneflow at main's defaults
+        argv_a = ["--dataset", "sceneflow", "--epochs", "2", "--run_root",
+                  os.path.join(base, "a")] + common
+        cfg = parse_args(argv_a)
+        check(cfg.compute_dtype == "bfloat16" and cfg.batch_size == STEREO_TRAIN_BATCH
+              and cfg.aggregation_type == "adaptive" and cfg.deform_impl == "window"
+              and cfg.refinement_type == "semantic" and not cfg.train_semantic
+              and cfg.model == "resnet18", "24a must run main's stereo defaults")
+        log(f"== 24a. main --dataset sceneflow --criterion none: StereoDCSS resnet18, max_disp "
+            f"192, adaptive (window deformable convs), StereoNet refinement, bf16; 288x576 "
+            f"crops at batch {STEREO_TRAIN_BATCH}, validation 576x960 (36 rows padded on top) "
+            f"at batch {cfg.val_batch_size}, 2 epochs, 4 loader threads")
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        with stereo_calls(torch, read) as calls:
+            tr = port_main(argv_a)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        a = stereo_step_log(calls, tr, "24a")
+        check(isinstance(tr.model.refinement, StereoNetRefinement) and tr.model.max_disp == 192
+              and len(tr.train_loader) == SF_TRAIN // STEREO_TRAIN_BATCH
+              and tr.state.step == 2 * len(tr.train_loader), "24a: model and steps")
+        losses = [m for _, m in tr.epoch_losses]
+        check(all(np.isfinite(v) for m in losses for v in m.values()), f"24a losses {losses}")
+        ckpts = sorted(os.listdir(tr.saver.checkpoint_dir))
+        check("score_best_checkpoint" in ckpts and "latest_checkpoint" in ckpts,
+              f"24a: checkpoints {ckpts}")
+        out["a"] = {**a, "peak_gb": peak, "losses": losses}
+        log(f"  {card}: 24a {a['steps']} steps: {a['ms_step']:.1f} ms a step from the second "
+            f"(loader wait {a['ms_wait']:.1f} ms a step), losses by epoch {losses}; val "
+            f"{a['val']} in {', '.join(f'{v:.2f}' for v in a['val_s'])} s; peak memory "
+            f"{peak:.2f} GB")
+        best = os.path.join(tr.saver.checkpoint_dir, "score_best_checkpoint")
+        latest = os.path.join(tr.saver.checkpoint_dir, "latest_checkpoint")
+        with open(latest + ".meta.json") as f:
+            meta = json.load(f)
+
+        reset()
+        with stereo_calls(torch, read) as calls:
+            again = port_main(argv_a[:2] + ["--epochs", "3", "--run_root",
+                                            os.path.join(base, "a2"), "--resume", latest,
+                                            "--continue_training"] + common)
+        first = calls[0]
+        out["a_resumed"] = stereo_step_log(calls, again, "24a resumed")
+        log(f"  24a --continue_training: first call {first['what']} at epoch {first['epoch']}, "
+            f"best_epe {first['best_epe']} (saved {meta['best_score']}), num_iter "
+            f"{first['num_iter']} (saved {meta['num_iter']})")
+        check(first["what"] == "train" and first["epoch"] == 2
+              and first["best_epe"] == meta["best_score"] and first["num_iter"] ==
+              meta["num_iter"] + 1 and len(calls) == 2, "24a: the resume's epoch and best_epe")
+
+        reset()
+        with stereo_calls(torch, read) as calls:
+            test = port_main(argv_a[:2] + ["--run_root", os.path.join(base, "a3"), "--resume",
+                                           best, "--test_only"] + common)
+        out["a_test_only"] = stereo_step_log(calls, test, "24a --test_only")
+        check([c["what"] for c in calls] == ["validate"]
+              and os.listdir(test.saver.checkpoint_dir) == [],
+              "24a --test_only: one validation and no checkpoint")
+        log(f"  24a --test_only: val {calls[0]['result']} (batch {test.cfg.val_batch_size}, "
+            f"{len(test.val_loader)} batches, K2 {calls[0]['launches']['fused_stem_pool']})")
+        out["a_k2_shapes"] = k2_at("24a's validation and --test_only",
+                                   val_batches(tr) + val_batches(test))
+        del tr, again, test
+        torch.cuda.empty_cache()
+
+        # b. the README's chain: KITTI with the seg head, from (a)'s weights
+        argv_b = ["--dataset", "kitti_2015", "--train_semantic", "--epochs", "1", "--run_root",
+                  os.path.join(base, "b"), "--resume", best] + common
+        log(f"== 24b. main --dataset kitti_2015 --train_semantic --resume <24a best>: semantic "
+            f"refinement and seg head, 288x1152 crops at batch {STEREO_TRAIN_BATCH}, "
+            "validation 384x1248, 1 epoch")
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        with stereo_calls(torch, read) as calls:
+            trb = port_main(argv_b)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        b = stereo_step_log(calls, trb, "24b")
+        losses = [m for _, m in trb.epoch_losses]
+        check(isinstance(trb.model.refinement, SemanticGuidedRefinement)
+              and all(set(m) == {"disp_loss", "seg_loss", "total_loss"}
+                      and all(np.isfinite(v) for v in m.values()) for m in losses),
+              f"24b: the semantic refinement and finite disp and seg losses {losses}")
+        out["b"] = {**b, "peak_gb": peak, "losses": losses}
+        log(f"  {card}: 24b {b['steps']} steps: {b['ms_step']:.1f} ms a step from the second "
+            f"(loader wait {b['ms_wait']:.1f} ms), losses {losses}; val {b['val']}; peak "
+            f"memory {peak:.2f} GB")
+        ckpt_b = os.path.join(trb.saver.checkpoint_dir, "score_best_checkpoint")
+        out["b_k2_shapes"] = k2_at("24b's validation", val_batches(trb))
+        del trb
+        torch.cuda.empty_cache()
+
+        # c. a train step of each 3-D aggregation, without cuDNN's autotuning:
+        # on an H100 80GB HBM3 (700 W) it took 1.6-19.8 s of each first step
+        torch.backends.cudnn.benchmark = False
+        bsz, h, w = STEREO_STEP
+        log(f"== 24c. make_stereo_train_step, 3 steps each, {w}x{h} x {bsz}, bf16, max_disp 192")
+        pairs = [rendered_pair(torch, gen, (h, w), 4.0, 120.0) for _ in range(bsz)]
+        batch = {k: torch.from_numpy(np.stack([p[i] for p in pairs])).to(dev)
+                 for i, k in enumerate(("left", "right", "disp"))}
+        cfg_c = parse_args(["--dataset", "kitti_2015", "--criterion", "none"])
+        out["c"] = {}
+        for agg, ref in STEREO_24C:
+            model = build_stereo_model(device=dev, seed=24, max_disp=192, aggregation_type=agg,
+                                       refinement_type=ref, train_semantic=False,
+                                       dtype="bfloat16")
+            optimizer = build_stereo_optimizer(model, cfg_c, 1)
+            step = make_stereo_train_step(model, cfg_c, optimizer)
+            state = TrainState(model, optimizer)
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            comps, times = [], []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = step(state, batch)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+                comps.append({k: v.item() for k, v in m.items()})
+            launches = read()
+            expect_launches(launches, f"24c {agg} + {ref}, 3 steps", k2=0)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            check(all(np.isfinite(v) for c in comps for v in c.values()),
+                  f"24c {agg} + {ref}: losses {comps}")
+            out["c"][f"{agg} + {ref}"] = {"ms": times, "peak_gb": peak, "launches": launches,
+                                          "disp_loss": [c["disp_loss"] for c in comps]}
+            log(f"  {card}: 24c {agg} + {ref}: ms a step {', '.join(f'{t:.1f}' for t in times)}"
+                f", disp_loss "
+                f"{', '.join('%.3f' % c['disp_loss'] for c in comps)}, peak memory {peak:.2f} GB")
+            del model, optimizer, step, state
+            torch.cuda.empty_cache()
+
+        # d. f32 card vs CPU, the whole step and block by block; its own generator
+        torch.backends.cudnn.deterministic = True
+        gen_d = torch.Generator().manual_seed(2404)
+        bsz, h, w = STEREO_CPU_STEP
+        log(f"== 24d. f32 {w}x{h} x {bsz}: one train step on the card vs the CPU, then blocks "
+            "with the CPU's ReLU gates forced")
+        pairs = [rendered_pair(torch, gen_d, (h, w), 2.0, 40.0) for _ in range(bsz)]
+        batch = {k: torch.from_numpy(np.stack([p[i] for p in pairs]))
+                 for i, k in enumerate(("left", "right", "disp"))}
+        batch["label"] = torch.randint(0, 19, (bsz, h, w), generator=gen_d).to(torch.uint8)
+        out["d"] = {}
+        for agg, ref, sem in (("stereonet", "stereonet", False), ("adaptive", "semantic", True)):
+            cfg_d = parse_args(["--dataset", "kitti_2015", "--criterion", "none",
+                                "--compute_dtype", "float32"] +
+                               (["--train_semantic"] if sem else []))
+            model = build_stereo_model(device="cpu", seed=25, max_disp=192, aggregation_type=agg,
+                                       refinement_type=ref, train_semantic=sem, dtype="float32")
+            randomize_bn(model, gen_d)
+            randomize_offsets(torch, model, gen_d)
+            res = {}
+            for where in ("cpu", dev):
+                m = copy.deepcopy(model).to(where).train()
+                total, comps, outputs = stereo_loss(m, cfg_d, {k: v.to(where)
+                                                               for k, v in batch.items()})
+                total.backward()
+                res[where] = ({k: v.item() for k, v in comps.items()},
+                              outputs["disp"].detach().cpu(),
+                              {k: v.cpu() for k, v in m.state_dict().items()
+                               if k.endswith("running_mean") or k.endswith("running_var")},
+                              {k: p.grad.cpu() for k, p in m.named_parameters()
+                               if p.grad is not None})
+                del m
+            (c_cpu, d_cpu, s_cpu, g_cpu), (c_gpu, d_gpu, s_gpu, g_gpu) = res["cpu"], res[dev]
+            comp_rel = max(abs(c_gpu[k] - c_cpu[k]) / max(abs(c_cpu[k]), 1e-30) for k in c_cpu)
+            disp_rel = rel_err(torch, d_gpu, d_cpu)
+            stats_rel = max(rel_err(torch, s_gpu[k], s_cpu[k]) for k in s_cpu)
+            gate_free = [k for k in g_cpu if k.startswith(("refinement.conv_out.",
+                                                           "segmentation.conv."))]
+            gf_err = max(rel_err(torch, g_gpu[k], g_cpu[k]) for k in gate_free)
+            top = max(g.abs().max().item() for g in g_cpu.values())
+            # a gradient below 1e-4 of the largest is structurally zero (a bias
+            # a soft-argmin or a train-mode BN cancels): its relative error is noise
+            worst = max((k for k in g_cpu if g_cpu[k].abs().max().item() > 1e-4 * top),
+                        key=lambda k: rel_err(torch, g_gpu[k], g_cpu[k]))
+            out["d"][f"{agg} + {ref}"] = {"loss_rel": comp_rel, "disp_rel": disp_rel,
+                                          "stats_rel": stats_rel, "gate_free_rel": gf_err}
+            log(f"  24d {agg} + {ref}{' + train_semantic' if sem else ''}: losses {c_gpu} vs "
+                f"{c_cpu}, max rel err {comp_rel:.2e} (1e-4); disparity {disp_rel:.2e} of max "
+                f"(1e-4); BN running stats {stats_rel:.2e} (1e-4); gate-free gradients "
+                f"({', '.join(gate_free)}) {gf_err:.2e} of max|g| (1e-3); the largest gradient "
+                f"error {rel_err(torch, g_gpu[worst], g_cpu[worst]):.2e} in {worst} (not held: "
+                "below a ReLU gate)")
+            check(set(g_gpu) == set(g_cpu) and comp_rel <= 1e-4 and disp_rel <= 1e-4
+                  and stats_rel <= 1e-4 and gf_err <= 1e-3,
+                  f"24d {agg} + {ref}: the card's train step disagrees with the CPU")
+
+            def nchw(*shape):
+                return torch.randn(*shape, generator=gen_d).contiguous(
+                    memory_format=torch.channels_last)
+
+            hq, wq = h // 4, w // 4
+            disp_in = torch.rand(bsz, hq, wq, generator=gen_d) * 10
+            img = torch.rand(bsz, h, w, 3, generator=gen_d) * 255
+            if sem:
+                bottleneck = model.aggregation.fusions[1].branches[0][0]
+                check(isinstance(bottleneck, DeformSimpleBottleneck), "24d: a deformable block")
+                blocks = (("aggregation.fusions.1.branches.0.0 (deformable, window)",
+                           bottleneck, [nchw(bsz, 48, hq, wq)]),
+                          ("refinement (semantic-guided)", model.refinement,
+                           [disp_in, img, nchw(bsz, 128, hq, wq)]),
+                          ("segmentation", model.segmentation, [nchw(bsz, 128, hq, wq)]))
+            else:
+                # the 3-D aggregation on a small difference volume (its gates
+                # are LeakyReLUs, which the recorder does not force)
+                vol = torch.randn(bsz, 128, 12, 8, 16, generator=gen_d)
+                blocks = (("aggregation (StereoNet, 3-D, (2, 128, 12, 8, 16))",
+                           model.aggregation, [vol]),
+                          ("refinement (StereoNet)", model.refinement, [disp_in, img]))
+            for name, block, inputs in blocks:
+                log_block(name, block_errors(torch, block, inputs, dev, gen_d), "24d ")
+            del model
+        torch.backends.cudnn.deterministic = False
+
+        # e. inference --stereo on (b)'s checkpoint
+        log("== 24e. inference --stereo --train_semantic --refinement_type semantic --resume "
+            f"<24b best>: 2 KITTI pairs of {KITTI_HW[1]}x{KITTI_HW[0]} padded to "
+            f"{KITTI_PAD[1]}x{KITTI_PAD[0]}, bf16 and f32")
+        oh, ow = KITTI_HW
+        ph, pw = KITTI_PAD
+        kitti = os.path.join(base, "kitti_2015", "training")
+        names = sorted(os.listdir(os.path.join(kitti, "image_2")))[:2]
+        composition = ["--train_semantic", "--refinement_type", "semantic", "--max_disp", "192"]
+        out["e"] = {}
+        pair_dirs = {sub: os.path.join(base, "pairs", sub) for sub in ("image_2", "image_3")}
+        for sub, d in pair_dirs.items():
+            os.makedirs(d)
+            for n in names:
+                os.symlink(os.path.join(kitti, sub, n), os.path.join(d, n))
+        out["e_k2_shapes"] = k2_at("24e's pairs", [(1, ph, pw)])
+        for dtype in ("bfloat16", "float32"):
+            args = ["--stereo", "--input", pair_dirs["image_2"], "--right_input",
+                    pair_dirs["image_3"], "--resume", ckpt_b, "--output_dir",
+                    os.path.join(base, f"out_{dtype}"), "--val_img_height", str(ph),
+                    "--val_img_width", str(pw), "--compute_dtype", dtype,
+                    "--device", dev.type] + composition
+            reset()
+            res = port_inference.main(args)
+            torch.cuda.synchronize()
+            got = read()
+            expect_launches(got, f"24e inference --stereo {dtype}, 2 pairs", k2=6,
+                            tc=6 if dtype == "bfloat16" else 0)
+            model = build_stereo_model(port_inference.build_parser().parse_args(args), device=dev)
+            port_inference.load_checkpoint(model, ckpt_b)
+            within = []
+            for path, n in zip(res["paths"], names):
+                disk = read_png(path)
+                pad = ((ph - oh, 0), (0, pw - ow), (0, 0))
+                xl, xr = (torch.from_numpy(np.pad(read_png(os.path.join(kitti, sub, n), "RGB"),
+                                                  pad)).to(dev, torch.float32)[None]
+                          for sub in ("image_2", "image_3"))
+                with torch.no_grad():
+                    d = model.disparity(xl, xr)[0]["disp"][0].cpu().numpy()
+                ref = np.clip(d[ph - oh:, :ow] * 256.0, 0, 65535).astype(np.uint16)
+                check(disk.dtype == np.uint16 and disk.shape == (oh, ow), "24e: 16-bit PNGs")
+                within.append(float((np.abs(disk.astype(np.int32) - ref) <= 1).mean()))
+            fps = 1.0 / float(np.mean(res["forward_s"][1:]))
+            out["e"][dtype] = {"launches": got, "within_1": within, "fps": fps}
+            log(f"  {card}: 24e {dtype}: {fps:.2f} pairs/s from the second pair; PNGs within 1 "
+                f"LSB of the forward in process on {', '.join(f'{v:.6f}' for v in within)} of "
+                "the pixels (bar 0.999)")
+            check(min(within) >= 0.999, f"24e: inference --stereo {dtype} disagrees")
+            del model
+    torch.backends.cudnn.benchmark = True
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t24
+    log(f"  {card}: phase 24 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4101,6 +4585,17 @@ def main() -> int:
             dtype: r["launches"]["fused_stem_pool"] for dtype, r in p23["inference"].items()}}
     kernels[1]["stereo_3d"] = {"launches_a_serving_batch": a23["fused_seghead_upsample_argmax"],
                                "tensor_core_launches": a23["k1_tc"]}
+
+    # 24. stereo training
+    p24 = stereo_train_phase(torch, dev, card, reset, read)
+    kernels[0]["stereo_training"] = {
+        run: {"val_batches": p24[key]["val_batches"], **p24[key]["k2"]}
+        for run, key in (("sceneflow, 2 epochs", "a"), ("sceneflow resumed", "a_resumed"),
+                         ("sceneflow test_only", "a_test_only"), ("kitti_2015", "b"))}
+    kernels[0]["stereo_training"]["3-D aggregations, 3 steps each"] = {
+        k: r["launches"]["fused_stem_pool"] for k, r in p24["c"].items()}
+    kernels[0]["stereo_training"]["inference_stereo_launches_2_pairs"] = {
+        dtype: r["launches"]["fused_stem_pool"] for dtype, r in p24["e"].items()}
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

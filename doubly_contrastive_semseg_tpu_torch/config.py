@@ -10,9 +10,10 @@ of the port alone: ``data_root``'s default (under the home directory, where
 JAX names a fixed path), ``filelist_root`` (JAX reads ``./filenames``) and
 ``device`` (``cuda`` or ``cpu``, where JAX reads ``JAX_PLATFORMS``).
 
-Flags whose route is not ported parse as in JAX; ``check_ported`` raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item when a run asks for
-one.
+Flags whose route is not ported (``--num_devices`` above 1) parse as in
+JAX; ``check_ported`` raises ``NotImplementedError`` naming the
+``ROADMAP.md`` item when a run asks for one. ``is_stereo_run`` says which
+runs ``main`` gives the stereo trainer.
 """
 
 from __future__ import annotations
@@ -254,20 +255,22 @@ class Config:
         return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
 
 
+def is_stereo_run(cfg: Config) -> bool:
+    """The runs JAX's ``main.py:35-38`` sends to the disparity trainer: a
+    stereo list, or synthetic data with ``--transfer_disparity``,
+    ``--criterion none`` and no ``--train_semantic``."""
+    return cfg.dataset in STEREO_DATASETS or (
+        cfg.dataset == "synthetic" and not cfg.train_semantic
+        and cfg.criterion == "none" and cfg.transfer_disparity)
+
+
 def check_ported(cfg: Config) -> None:
     """Raises ``NotImplementedError`` naming the ``ROADMAP.md`` item for a
-    run that needs a route the port does not have yet."""
-    todo = None
-    # the runs JAX's main.py:35-38 sends to the disparity trainer
-    if cfg.dataset in STEREO_DATASETS or (
-            cfg.dataset == "synthetic" and not cfg.train_semantic
-            and cfg.criterion == "none" and cfg.transfer_disparity):
-        todo = (f"stereo training (dataset {cfg.dataset!r}) is ROADMAP.md §1 item 5c; "
-                "stereo serving runs through make_stereo_serving_fn and inference --stereo")
-    elif cfg.num_devices is not None and cfg.num_devices > 1:
-        todo = f"--num_devices {cfg.num_devices} is ROADMAP.md §1 item 6 (multi-GPU)"
-    if todo:
-        raise NotImplementedError(f"not ported yet: {todo}")
+    run that needs a route the port does not have yet: ``--num_devices``
+    above 1."""
+    if cfg.num_devices is not None and cfg.num_devices > 1:
+        raise NotImplementedError(f"not ported yet: --num_devices {cfg.num_devices} is "
+                                  "ROADMAP.md §1 item 6 (multi-GPU)")
 
 
 def _add_bool_flag(p: argparse.ArgumentParser, name: str, default: bool, help_: str = "") -> None:

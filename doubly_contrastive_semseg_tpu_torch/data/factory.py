@@ -12,13 +12,14 @@
   in JAX: CropBlackArea first, then the host crops (1024×512 under
   ``--new_crop``), no gamma; val CropBlackArea → FixedResize → ToArrays;
   ``--not_md_fusion`` keeps Lost&Found alone;
-- the datasets ``acdc``, ``acdc_city``, ``cityscapes``, ``city_lost`` (files
-  under ``data_root``, file lists under ``filelist_root``) and
-  ``synthetic`` (in memory).
+- the datasets ``acdc``, ``acdc_city``, ``cityscapes``, ``city_lost``, the
+  stereo lists ``kitti_2015``, ``kitti_mix`` and ``sceneflow`` (files under
+  ``data_root``, file lists under ``filelist_root``) and ``synthetic`` (in
+  memory).
 
-The stereo lists ``kitti_2015``, ``kitti_mix`` and ``sceneflow`` belong to
-stereo training, ``ROADMAP.md`` §1 item 5c: asking for them raises
-``NotImplementedError`` rather than taking another route.
+As in JAX, a stereo list here takes the semantic pipelines with its
+disparity loaded; ``main`` sends those datasets to the stereo trainer,
+whose pipelines are ``train/trainer_stereo.py::stereo_dataset``'s.
 """
 
 from __future__ import annotations
@@ -48,8 +49,6 @@ from .transforms import (
 
 # dataset-mean fill of the crop padding (reference dataloaders/utils.py:28-30)
 MEAN_RGB = tuple(np.uint8([73.15, 82.90, 72.3]))
-
-_NOT_PORTED = ("kitti_2015", "kitti_mix", "sceneflow")
 
 
 def _train_rng(cfg, seed: int):
@@ -104,12 +103,16 @@ def get_dataset(cfg, seed: int = 0):
         val_dst = ACDC(root=cfg.data_root, mode=val_mode, transform=val_t, opts=cfg,
                        filelist_root=cfg.filelist_root)
         return train_dst, val_dst
-    if cfg.dataset in ("acdc_city", "cityscapes"):
+    if cfg.dataset == "acdc_city":
         train_t, val_t = build_transforms(cfg, cfg.crop_wh, seed)
         kw = dict(opts=cfg, filelist_root=cfg.filelist_root)
-        cls = ACDC_City if cfg.dataset == "acdc_city" else Cityscapes
-        return (cls(root=cfg.data_root, mode="train", transform=train_t, **kw),
-                cls(root=cfg.data_root, mode="val", transform=val_t, **kw))
+        return (ACDC_City(root=cfg.data_root, mode="train", transform=train_t, **kw),
+                ACDC_City(root=cfg.data_root, mode="val", transform=val_t, **kw))
+    if cfg.dataset in ("cityscapes", "kitti_2015", "kitti_mix", "sceneflow"):
+        train_t, val_t = build_transforms(cfg, cfg.crop_wh, seed)
+        kw = dict(dataset_name=cfg.dataset, opts=cfg, filelist_root=cfg.filelist_root)
+        return (Cityscapes(root=cfg.data_root, mode="train", transform=train_t, **kw),
+                Cityscapes(root=cfg.data_root, mode="val", transform=val_t, **kw))
     if cfg.dataset == "city_lost":
         train_t = _host_train(cfg, cfg.crop_wh, _train_rng(cfg, seed), gamma=False,
                               first=[CropBlackArea()])
@@ -137,8 +140,4 @@ def get_dataset(cfg, seed: int = 0):
                                    weather_num=cfg.weather_num,
                                    transform=val_t, seed=seed + 1, mode="val")
         return train_dst, val_dst
-    if cfg.dataset in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset {cfg.dataset!r} is not ported yet: stereo training is ROADMAP.md "
-            "§1 item 5c")
     raise ValueError(f"unknown dataset {cfg.dataset}")

@@ -1,5 +1,7 @@
-"""Synthetic in-memory dataset with the sample contract of the file-backed
-ones — port of the JAX package's ``data/synthetic.py::SyntheticDataset``.
+"""Synthetic in-memory datasets — port of the JAX package's
+``data/synthetic.py``: ``SyntheticDataset``, with the sample contract of the
+file-backed ones, and ``SyntheticStereoDataset``, the stereo pairs of the
+synthetic disparity route.
 
 It backs ``dataset="synthetic"``, so the train and validate paths run end
 to end without a dataset on disk. Frames are blocky random class layouts
@@ -17,6 +19,47 @@ from typing import Callable, Dict, Optional
 import numpy as np
 
 from .labels import TRAIN_ID_TO_COLOR, WEATHER_DICT
+
+
+class SyntheticStereoDataset:
+    """Random stereo pairs with exact ground-truth disparity (JAX
+    ``SyntheticStereoDataset``), bit for bit JAX's for a seed and index:
+    smoothed noise as the left view, the right view the left shifted by a
+    constant integer disparity drawn in [2, max_disp − 2), zeros where it
+    has no source; the disparity map that constant, 0 (invalid) in the
+    left border's ``d`` columns; a random int64 label map. Float32 images
+    on the 0-255 scale."""
+
+    def __init__(self, size: int = 8, image_hw=(64, 96), max_disp: int = 16, seed: int = 0):
+        self.size = size
+        self.image_hw = image_hw
+        self.max_disp = max_disp
+        self.seed = seed
+
+    def __len__(self) -> int:
+        return self.size
+
+    def __getitem__(self, index: int) -> Dict:
+        rng = np.random.default_rng(self.seed * 9176 + index)
+        h, w = self.image_hw
+        left = rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
+        # a smoothed texture, so that bilinear matching is well posed
+        for _ in range(2):
+            left = np.apply_along_axis(
+                lambda v: np.convolve(v, np.ones(5) / 5, mode="same"), 1, left)
+        d = float(rng.integers(2, self.max_disp - 2))
+        right = np.zeros_like(left)
+        right[:, : w - int(d)] = left[:, int(d):]
+        disp = np.full((h, w), d, np.float32)
+        disp[:, : int(d)] = 0.0
+        return {
+            "left": left,
+            "right": right,
+            "disp": disp,
+            "label": rng.integers(0, 19, (h, w)).astype(np.int64),
+            "left_name": f"stereo/{index}",
+            "frame_name": f"{index}",
+        }
 
 
 class SyntheticDataset:

@@ -534,6 +534,37 @@ def _pil_apply(img, fn) -> np.ndarray:
     return np.asarray(fn(Image.fromarray(np.asarray(img))))
 
 
+def adjust_brightness(img, factor: float):
+    """torchvision's PIL ``adjust_brightness``: ``ImageEnhance.Brightness``."""
+    from PIL import ImageEnhance
+
+    return ImageEnhance.Brightness(img).enhance(factor)
+
+
+def adjust_contrast(img, factor: float):
+    """torchvision's PIL ``adjust_contrast``: ``ImageEnhance.Contrast``."""
+    from PIL import ImageEnhance
+
+    return ImageEnhance.Contrast(img).enhance(factor)
+
+
+def adjust_saturation(img, factor: float):
+    """torchvision's PIL ``adjust_saturation``: ``ImageEnhance.Color``."""
+    from PIL import ImageEnhance
+
+    return ImageEnhance.Color(img).enhance(factor)
+
+
+def adjust_gamma(img, gamma: float, gain: float = 1.0):
+    """torchvision's PIL ``adjust_gamma`` (JAX ``stereo_transforms.py``):
+    each channel through the 256-entry table ``int(255 · gain · (x /
+    255)^γ)``, PIL's ``point``."""
+    if gamma < 0:
+        raise ValueError("gamma must be non-negative")
+    lut = [int(255 * gain * ((ele / 255.0) ** gamma)) for ele in range(256)]
+    return img.point(lut * len(img.getbands()))
+
+
 def adjust_hue(img, hue_factor: float):
     """torchvision's PIL ``adjust_hue`` (JAX ``stereo_transforms.py``): the
     H channel of the uint8 HSV image rotated by ``hue_factor · 255``."""
@@ -566,18 +597,16 @@ class ColorJitter:
         return float(self.rng.uniform(max(0.0, 1.0 - v), 1.0 + v))
 
     def __call__(self, sample: Dict) -> Dict:
-        from PIL import ImageEnhance
-
         ops = []
         if self.brightness:
             b = self._factor(self.brightness)
-            ops.append(lambda im, f=b: ImageEnhance.Brightness(im).enhance(f))
+            ops.append(lambda im, f=b: adjust_brightness(im, f))
         if self.contrast:
             c = self._factor(self.contrast)
-            ops.append(lambda im, f=c: ImageEnhance.Contrast(im).enhance(f))
+            ops.append(lambda im, f=c: adjust_contrast(im, f))
         if self.saturation:
             s = self._factor(self.saturation)
-            ops.append(lambda im, f=s: ImageEnhance.Color(im).enhance(f))
+            ops.append(lambda im, f=s: adjust_saturation(im, f))
         if self.hue:
             h = float(self.rng.uniform(-self.hue, self.hue))
             ops.append(lambda im, f=h: adjust_hue(im, f))

@@ -8,10 +8,21 @@ seed, build the ``Trainer``, then the epoch loop train → validate from
         --train_semantic --criterion supcon_pixelcontrast_focal --epochs 1 \\
         --batch_size 2 --debug --device cpu
 
+The stereo datasets (``sceneflow``, ``kitti_2015``, ``kitti_mix``) and the
+synthetic disparity route (``--dataset synthetic --transfer_disparity
+--criterion none`` without ``--train_semantic``; ``config.py::
+is_stereo_run``) go to the ``StereoTrainer`` (JAX ``main.py:32-47``):
+train → validate each epoch, or under ``--test_only`` one validation that
+writes no checkpoint.
+
+    python -m doubly_contrastive_semseg_tpu_torch.main --dataset synthetic \
+        --transfer_disparity --criterion none --refinement_type stereonet \
+        --debug --device cpu
+
 Runs on the card unless ``--device cpu`` is given; with ``cuda`` and no
-card it raises. The stereo route and ``--num_devices`` above 1 raise
-``NotImplementedError`` naming their ``ROADMAP.md`` items
-(``config.py::check_ported``, called by the ``Trainer``).
+card it raises. ``--num_devices`` above 1 raises ``NotImplementedError``
+naming its ``ROADMAP.md`` item (``config.py::check_ported``, called by both
+trainers).
 """
 
 from __future__ import annotations
@@ -23,13 +34,13 @@ from typing import Optional, Sequence, Union
 
 import torch
 
-from .config import parse_args
+from .config import is_stereo_run, parse_args
 from .tools.tsne import Viz
-from .train import Trainer
+from .train import StereoTrainer, Trainer
 from .utils import seed_all_rng
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Union[Trainer, Viz]:
+def main(argv: Optional[Sequence[str]] = None) -> Union[Trainer, StereoTrainer, Viz]:
     """Runs the CLI on ``argv`` (``sys.argv[1:]`` when None) and returns the
     trainer (under ``--tsne`` the ``Viz``)."""
     cfg = parse_args(argv)
@@ -45,6 +56,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Union[Trainer, Viz]:
 
     if cfg.device == "cuda":
         torch.backends.cudnn.benchmark = True
+    if is_stereo_run(cfg):
+        stereo = StereoTrainer(cfg, device=cfg.device)
+        if cfg.test_only:
+            stereo.validate(save_ckpt=False)
+            return stereo
+        for epoch in range(stereo.cur_epochs, cfg.epochs):
+            stereo.cur_epochs = epoch
+            stereo.train()
+            stereo.validate()
+        return stereo
+
     trainer = Trainer(cfg, device=cfg.device)
 
     if cfg.test_only:

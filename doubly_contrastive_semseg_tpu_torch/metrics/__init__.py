@@ -6,3 +6,4 @@ from .confusion import (
 )
 from .evaluator import Evaluator
 from .meters import AverageMeter, TimeAverageMeter
+from .disparity import d1_metric, epe_metric, thres_metric

@@ -84,6 +84,17 @@ def build_optimizer(model: torch.nn.Module, cfg, steps_per_epoch: int) -> torch.
     return torch.optim.SGD(groups, momentum=0.9)
 
 
+def build_stereo_optimizer(model: torch.nn.Module, cfg,
+                           steps_per_epoch: int) -> torch.optim.Optimizer:
+    """The stereo trainer's optimizer (JAX ``trainer_stereo.py``:
+    ``optax.adam(build_lr_schedule(cfg, steps_per_epoch), b1=0.9,
+    b2=0.99)``): Adam over every parameter in one group at ``cfg.lr``'s
+    schedule, without weight decay."""
+    group = {"params": list(model.parameters()), "lr": cfg.lr, "weight_decay": 0.0,
+             "label": "stereo", "base_lr": cfg.lr, "steps_per_epoch": steps_per_epoch}
+    return torch.optim.Adam([group], betas=(0.9, 0.99), eps=1e-8)
+
+
 def set_lr(optimizer: torch.optim.Optimizer, cfg, step: int) -> None:
     """Sets each group's lr for update number ``step`` (0 for the first)."""
     for group in optimizer.param_groups:

@@ -1,13 +1,16 @@
 """The train and eval steps — port of the JAX package's ``train/steps.py``
 (``ingest_batch``, ``make_train_step``, ``make_eval_step``,
-``init_eval_accum``; reference ``trainer.py:62-215`` train,
-``trainer.py:303-402`` validate).
+``make_stereo_train_step``, ``init_eval_accum``; reference
+``trainer.py:62-215`` train, ``trainer.py:303-402`` validate,
+``utils/loss.py:478-516`` the disparity loss).
 
 A batch is a dict of tensors on the model's device: ``left`` (2B or B,
 H, W, 3) images (uint8 or float; two views stacked for a SupCon
 criterion), ``label`` (B, H, W) with 255 holes, ``label_distance_weight``
 (B, H, W) EDT weights, ``weather`` (B,), ``class_weight`` (C,). The eval
-step takes ``left`` and, where present, ``label`` and ``weather``.
+step takes ``left`` and, where present, ``label`` and ``weather``. A stereo
+batch holds ``left`` and ``right`` (B, H, W, 3), ``disp`` (B, H, W) float32
+(0 where there is no ground truth) and, on a dataset with labels, ``label``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..losses import compute_total_loss, weather_classifier_metrics
+from ..losses.disparity import disparity_loss
+from ..losses.focal import cross_entropy_loss
 from ..metrics.confusion import (confusion_matrix, confusion_matrix_per_weather,
                                  weather_confusion_matrix)
 from ..models.blocks import set_dropout_generator
@@ -101,6 +106,48 @@ def make_train_step(model, cfg, optimizer: torch.optim.Optimizer) -> Callable:
                                                          batch["weather"])
             metrics["weather_loss"], metrics["weather_clf_acc"] = w_ce, w_acc
         return metrics
+
+    return train_step
+
+
+def stereo_loss(model, cfg, batch: Dict
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, object]]:
+    """The forward of one stereo train step in the model's current mode
+    (JAX ``make_stereo_train_step``'s ``loss_fn``): the disparity loss of
+    ``[disp_pyramid[0], disp]`` against ``batch["disp"]`` (its default
+    ``max_disp`` of 192, whatever the model's), plus the cross-entropy of
+    ``seg`` against ``label`` with ``train_semantic`` on a batch with
+    labels. Returns (total, {"disp_loss", ["seg_loss"], "total_loss"},
+    model outputs). ``PSMNetHGAggregation``'s two earlier costs get no
+    loss, as in JAX."""
+    batch = ingest_batch(batch)
+    outputs = model(batch["left"], batch["right"])
+    total = disparity_loss([outputs["disp_pyramid"][0], outputs["disp"]], batch["disp"])
+    comps = {"disp_loss": total}
+    if cfg.train_semantic and "label" in batch:
+        comps["seg_loss"] = cross_entropy_loss(outputs["seg"], batch["label"])
+        total = total + comps["seg_loss"]
+    comps["total_loss"] = total
+    return total, comps, outputs
+
+
+def make_stereo_train_step(model, cfg, optimizer: torch.optim.Optimizer) -> Callable:
+    """Returns ``train_step(state, batch) -> metrics`` for ``StereoDCSS``:
+    the training-mode forward of both views (their trunk BN moments span
+    the 2B batch, as in JAX), ``stereo_loss``, backward, one optimizer
+    update at the scheduled lr, ``state.step`` += 1; the metrics are the
+    loss components, detached. No stereo module draws dropout, so the step
+    takes no generator where JAX's takes an rng it never reads."""
+
+    def train_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        total, comps, _ = stereo_loss(model, cfg, batch)
+        total.backward()
+        set_lr(optimizer, cfg, state.step)
+        optimizer.step()
+        state.step += 1
+        return {k: v.detach() for k, v in comps.items()}
 
     return train_step
 

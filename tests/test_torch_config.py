@@ -8,7 +8,8 @@ passes ``check_ported`` (the six WeatherNet backbones ported last are built
 through ``main``). The one
 difference by design: the default ``data_root`` lies under the home
 directory in the port, where JAX names a fixed path; with ``--data_root``
-given they agree. Runs that need a route the port does not have raise
+given they agree. The stereo routes pass ``check_ported``; runs that need a
+route the port does not have (``--num_devices`` above 1) raise
 ``NotImplementedError`` naming its ``ROADMAP.md`` item, and the CLIs raise
 without a card unless ``--device cpu`` is given.
 """
@@ -26,7 +27,7 @@ from doubly_contrastive_semseg_tpu_torch import config as port_config  # noqa: E
 from doubly_contrastive_semseg_tpu_torch import inference as port_inference  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch import main as port_main  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.config import (  # noqa: E402
-    MODELS, PORTED_MODELS, check_ported, parse_args)
+    MODELS, PORTED_MODELS, check_ported, is_stereo_run, parse_args)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_ONLY = {"filelist_root", "device"}
@@ -100,17 +101,26 @@ def test_properties_match_jax():
             assert p.crop_wh == j.crop_wh
 
 
+# (argv, whether main gives it the stereo trainer)
 NOT_PORTED = {
-    "kitti_2015": (["--dataset", "kitti_2015"], "§1 item 5"),
-    "sceneflow": (["--dataset", "sceneflow"], "§1 item 5"),
-    "synthetic disparity": (["--dataset", "synthetic", "--transfer_disparity"], "§1 item 5"),
-    "num_devices": (["--num_devices", "2"], "§1 item 6"),
+    "kitti_2015": (["--dataset", "kitti_2015"], True),
+    "sceneflow": (["--dataset", "sceneflow"], True),
+    "synthetic disparity": (["--dataset", "synthetic", "--transfer_disparity"], True),
+    "num_devices": (["--num_devices", "2"], False),
 }
 
 
-@pytest.mark.parametrize("argv,item", list(NOT_PORTED.values()), ids=list(NOT_PORTED))
-def test_unported_routes_raise_naming_their_item(argv, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+@pytest.mark.parametrize("argv,stereo", list(NOT_PORTED.values()), ids=list(NOT_PORTED))
+def test_unported_routes_raise_naming_their_item(argv, stereo, tmp_path):
+    """The stereo routes (JAX ``main.py:35-38``) pass ``check_ported`` and
+    go to the stereo trainer; ``--num_devices 2`` still raises, naming item
+    6, on either route and before the run writes anything."""
+    cfg = parse_args(argv)
+    assert is_stereo_run(cfg) == stereo
+    if stereo:
+        check_ported(cfg)
+    argv = argv if "--num_devices" in argv else [*argv, "--num_devices", "2"]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
         port_main.main([*argv, "--device", "cpu", "--run_root", str(tmp_path)])
     assert not os.listdir(tmp_path)
 

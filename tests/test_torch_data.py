@@ -9,6 +9,7 @@ labels exactly equal at a downscale, an upscale, mixed and the same size.
 """
 
 import gc
+import os
 import threading
 import time
 
@@ -260,15 +261,31 @@ def test_get_dataset_synthetic_matches_jax():
     assert [len(d) for d in get_dataset(cfg_debug)] == [8, 2]
 
 
-def test_get_dataset_raises_for_routes_not_ported():
-    """The stereo datasets raise, naming ROADMAP item 5, with either
-    augmentation route; the semantic datasets are ported with both
-    (``tests/test_torch_acdc.py``, ``tests/test_torch_transforms.py``,
-    ``tests/test_torch_datasets_city.py``)."""
+def test_get_dataset_raises_for_routes_not_ported(tmp_path):
+    """The stereo lists load through ``Cityscapes`` with their disparity
+    (JAX's ``get_dataset``: the semantic pipelines, which ``main`` never
+    gives them), on either augmentation route; an unknown name raises."""
+    from doubly_contrastive_semseg_tpu_torch.data import write_png
+    from doubly_contrastive_semseg_tpu_torch.data.cityscapes import LIST_FILES
+
+    frame = np.random.default_rng(5).integers(0, 256, (24, 40, 3)).astype(np.uint8)
+    write_png(tmp_path / "l.png", frame)
+    write_png(tmp_path / "r.png", np.ascontiguousarray(frame[:, ::-1]))
+    write_png(tmp_path / "d.png", np.full((24, 40), 5 * 256, np.uint16))
     for name in ("kitti_2015", "kitti_mix", "sceneflow"):
+        for mode in ("train", "val"):
+            path = tmp_path / "lists" / LIST_FILES[name].format(mode=mode)
+            os.makedirs(path.parent, exist_ok=True)
+            path.write_text("l.png r.png d.png\n")
         for host_augment in (True, False):
-            with pytest.raises(NotImplementedError, match="§1 item 5"):
-                get_dataset(Config(dataset=name, host_augment=host_augment))
+            cfg = Config(dataset=name, host_augment=host_augment, data_root=str(tmp_path),
+                         filelist_root=str(tmp_path / "lists"), val_img_width=40,
+                         val_img_height=24)
+            train, val = get_dataset(cfg)
+            assert train.load_disp and train.dataset_name == name and len(train) == 1
+            sample = val[0]
+            assert sample["disp"].dtype == np.float32 and (sample["disp"] == 5.0).all()
+            assert sample["right"].shape == sample["left"].shape == (24, 40, 3)
     with pytest.raises(ValueError, match="unknown dataset"):
         get_dataset(Config(dataset="nowhere", host_augment=False))
 

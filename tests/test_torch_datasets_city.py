@@ -205,11 +205,26 @@ def test_acdc_city_reads_both_roots_and_weathers(tree):
     assert train.samples[0]["frame_name"] == "GOPR0475_frame_000000*.png"
 
 
-def test_cityscapes_route_refuses_stereo():
-    with pytest.raises(NotImplementedError, match="§1 item 5"):
-        Cityscapes("/nowhere", dataset_name="kitti_2015")
-    with pytest.raises(NotImplementedError, match="§1 item 5"):
-        Cityscapes("/nowhere", load_disp=True)
+def test_cityscapes_route_refuses_stereo(tree):
+    """The stereo lists and ``load_disp=True`` read the disparity column
+    (``read_disp``: the PNG as v / 256, as JAX reads every PNG); on the
+    semantic route ``cityscapes`` leaves it unread, as in JAX."""
+    lists = tree / "filenames"
+    assert "disp" not in Cityscapes(str(tree / "cityscapes"), filelist_root=str(lists))[0]
+    os.makedirs(tree / "cityscapes" / "disparity" / "train" / "aachen", exist_ok=True)
+    raw = np.random.default_rng(3).integers(0, 65536, CITY_HW).astype(np.uint16)
+    rec = Cityscapes(str(tree / "cityscapes"), filelist_root=str(lists)).samples[0]
+    write_png(rec["disp"], raw)
+    got = Cityscapes(str(tree / "cityscapes"), filelist_root=str(lists), load_disp=True)[0]
+    np.testing.assert_array_equal(got["disp"], raw.astype(np.float32) / 256)
+    os.makedirs(lists / "kitti_2015", exist_ok=True)
+    (lists / "kitti_2015" / "KITTI_2015_train.txt").write_text(
+        (lists / "cityscapes" / "cityscapes_semantic_train.txt").read_text())
+    kitti = Cityscapes(str(tree / "cityscapes"), dataset_name="kitti_2015",
+                       filelist_root=str(lists))
+    assert kitti.load_disp and kitti.samples == Cityscapes(
+        str(tree / "cityscapes"), filelist_root=str(lists)).samples
+    np.testing.assert_array_equal(kitti[0]["disp"], got["disp"])
 
 
 def _box_image(hw, rng):

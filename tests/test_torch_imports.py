@@ -99,12 +99,14 @@ def test_every_module_imports_without_jax(guarded):
 
 
 STEREO = ("ops.cost_volume", "ops.deform_conv", "ops.warp", "models.stereo",
-          "models.stereo_extras", "models.serving", "inference")
+          "models.stereo_extras", "models.serving", "inference", "losses.disparity",
+          "metrics.disparity", "data.stereo_transforms", "data.cityscapes", "data.synthetic",
+          "train.steps", "train.trainer_stereo", "main")
 
 
 @pytest.mark.parametrize("name", STEREO)
 def test_stereo_modules_import_without_jax(guarded, name):
-    """The stereo serving slice's modules are in the guarded list and
-    import with JAX refused."""
+    """The stereo serving and training slices' modules are in the guarded
+    list and import with JAX refused."""
     assert f"{PACKAGE}.{name}" in MODULES
     assert guarded["result"][f"{PACKAGE}.{name}"] is None

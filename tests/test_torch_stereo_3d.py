@@ -11,7 +11,10 @@ Tolerances, each of max|·| of the JAX tensor: ``disp_warp`` and
 ``upsample_volume_4x`` 1e-6 (the same operations); eval outputs 1e-4; in
 training a block's output and running statistics 1e-4, a whole
 aggregation's 1e-2 (JAX's ``TorchBatchNorm`` takes a one-pass float32
-variance). Volumes are small (D, H, W of 4–16, 8 input channels) but keep
+variance). Backward (``check_training_grads``): each block's and each
+aggregation's output, input and parameter gradients from one random
+output cotangent, 1e-4 of max|·| (a gradient below ``ZERO_GRAD`` of the
+module's largest, structurally zero, only held below it). Volumes are small (D, H, W of 4–16, 8 input channels) but keep
 the published widths inside (32 to 128 channels); PSMNet's hourglass
 needs D, H, W multiples of 4, GCNet multiples of 16.
 """
@@ -34,6 +37,7 @@ from test_torch_deeplab import assert_same_tree, close, few_threads  # noqa: E40
 from test_torch_swiftnet_single import random_variables  # noqa: E402
 
 CIN = 8   # the volume's channels
+ZERO_GRAD = 1e-5
 
 
 def port_state(key, params, stats):
@@ -47,10 +51,19 @@ def ncdhw(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).permute(0, 4, 1, 2, 3)
 
 
+def to_port(a, raw=False) -> torch.Tensor:
+    """A JAX volume (B, D, H, W, C) or map (B, H, W, C) as a contiguous
+    port leaf tensor (B, C, D, H, W) or (B, C, H, W); a disparity (B, H, W),
+    or any array when ``raw``, as it is."""
+    perm = {5: (0, 4, 1, 2, 3), 4: (0, 3, 1, 2)}.get(a.ndim)
+    return torch.from_numpy(np.ascontiguousarray(a if raw or perm is None
+                                                 else np.transpose(a, perm)))
+
+
 def from_port(t: torch.Tensor) -> np.ndarray:
-    """A port volume (B, C, D, H, W) or an aggregation's (B, D, H, W) in
-    JAX's order."""
-    perm = (0, 2, 3, 4, 1) if t.dim() == 5 else (0, 2, 3, 1)
+    """A port volume (B, C, D, H, W), an aggregation's (B, D, H, W) or a
+    map (B, C, H, W) in JAX's order; a disparity (B, H, W) as it is."""
+    perm = {5: (0, 2, 3, 4, 1), 4: (0, 2, 3, 1)}.get(t.dim(), tuple(range(t.dim())))
     return t.detach().permute(*perm).numpy()
 
 
@@ -83,6 +96,63 @@ def check_module(rng, jmod, port, x, key, train, tol):
                 np.testing.assert_allclose(sd[k].numpy(), w, rtol=tol,
                                            atol=tol * np.abs(w).max(), err_msg=k)
     return params, stats
+
+
+def check_training_grads(rng, jmod, port, key, xs, params, stats, listed=False, jit=True,
+                         raw=()):
+    """``jmod`` and ``port`` (the module at ``key`` of ``StereoDCSS``) in
+    training from JAX's variables, on the inputs ``xs`` in JAX's layout (one
+    list argument when ``listed``; those at the indices ``raw``, the
+    refinements' NHWC images, go to the port as they are) and one random
+    cotangent an output: each output, input gradient and parameter gradient
+    within 1e-4 of max|·| of JAX's (module docstring), running stats rtol
+    1e-4. ``jit`` compiles JAX's forward and backward (not the window
+    deformable form, whose unrolled sums compile slower than they run)."""
+    port.load_state_dict(port_state(key, params, stats), strict=True)
+
+    def f(p, *a):
+        return jmod.apply({"params": p, "batch_stats": stats}, *([list(a)] if listed else a),
+                          True, mutable="batch_stats")
+
+    def run(p, cot, *a):
+        y, vjp_fn, new = jax.vjp(f, p, *a, has_aux=True)
+        return y, vjp_fn(cot), new
+
+    jx = [jnp.asarray(x) for x in xs]
+    y_shape = jax.eval_shape(f, params, *jx)[0]
+    cots = [rng.standard_normal(s.shape).astype(np.float32)
+            for s in (y_shape if isinstance(y_shape, list) else [y_shape])]
+    jcot = [jnp.asarray(c) for c in cots] if isinstance(y_shape, list) else jnp.asarray(cots[0])
+    want, grads, new = (jax.jit(run) if jit else run)(params, jcot, *jx)
+    want = want if isinstance(want, list) else [want]
+
+    port.train()
+    xt = [to_port(x, i in raw).requires_grad_(True) for i, x in enumerate(xs)]
+    got = port(*([xt] if listed else xt))
+    got = got if isinstance(got, list) else [got]
+    assert len(got) == len(want)
+    torch.autograd.backward(got, [to_port(c) for c in cots])
+    for g, w in zip(got, want):
+        close(from_port(g), w, f"{key} output")
+    for i, x in enumerate(xt):
+        close(x.grad.numpy() if i in raw else from_port(x.grad), grads[1 + i],
+              f"{key} input {i} gradient")
+    want_g = {k: v.numpy() for k, v in port_state(key, jax_to_py(grads[0]), {}).items()}
+    got_g = dict(port.named_parameters())
+    assert set(got_g) == set(want_g)
+    top = max(np.abs(w).max() for w in want_g.values())
+    for k, w in want_g.items():
+        g = np.zeros_like(w) if got_g[k].grad is None else got_g[k].grad.numpy()
+        if np.abs(w).max() <= ZERO_GRAD * top:   # a bias a train-mode BN's mean removes
+            assert np.abs(g).max() <= ZERO_GRAD * top, k
+        else:
+            close(g, w, f"{key}.{k} gradient")
+    sd = port.state_dict()
+    for k, w in port_state(key, {}, jax_to_py(new["batch_stats"])).items():
+        if not k.endswith("num_batches_tracked"):
+            w = w.numpy()
+            np.testing.assert_allclose(sd[k].numpy(), w, rtol=1e-4, atol=1e-4 * np.abs(w).max(),
+                                       err_msg=k)
 
 
 # ---- ops -----------------------------------------------------------------------------
@@ -193,3 +263,46 @@ def test_factories_take_every_kind_and_refuse_others():
         stereo_extras.make_aggregation("cost_filter", 48)
     with pytest.raises(NotImplementedError, match="refinement new6"):
         stereo_extras.make_refinement("new6")
+
+
+# ---- backward ------------------------------------------------------------------------
+
+# kind: (volume shape without channels, the key the converter maps, the JAX and port blocks)
+BLOCKS = {
+    "conv3d leaky": ((2, 4, 6, 8), "block", lambda: (
+        jextras.Conv3D(16, act="leaky"), stereo_extras.Conv3D(CIN, 16, act="leaky"))),
+    "conv3d relu, stride 2": ((2, 4, 6, 8), "block", lambda: (
+        jextras.Conv3D(16, stride=2, act="relu"),
+        stereo_extras.Conv3D(CIN, 16, stride=2, act="relu"))),
+    "conv3d, no activation": ((2, 4, 6, 8), "block", lambda: (
+        jextras.Conv3D(16, act=None), stereo_extras.Conv3D(CIN, 16, act=None))),
+    "trans_conv3d": ((2, 3, 5, 4), "trans1", lambda: (
+        jextras.TransConv3D(16), stereo_extras.TransConv3D(CIN, 16))),
+}
+
+
+@pytest.mark.parametrize("kind", list(BLOCKS))
+def test_3d_block_gradients_match_jax(rng, kind):
+    """The aggregations' 3-D blocks in training: output, input and
+    parameter gradients and running stats (``check_training_grads``)."""
+    shape, key, make = BLOCKS[kind]
+    jmod, port = make()
+    x = rng.standard_normal(shape + (CIN,)).astype(np.float32)
+    params, stats = random_variables(jmod, jnp.asarray(x), rng, jargs=(False,))
+    check_training_grads(rng, jmod, port, key, [x], params, stats)
+
+
+@pytest.mark.parametrize("kind", ["stereonet", "psmnet_basic", "psmnet_hg"])
+def test_aggregation_gradients_match_jax(rng, kind):
+    """A whole aggregation in training (``psmnet_hg`` with its three
+    costs), backward from one cotangent an output. GCNet is held block by
+    block (``test_3d_block_gradients_match_jax``) and not whole: its five
+    levels end at 1×1×1 on a 16³ volume, where a train-mode BN sees two
+    values a channel, and its gradients differ from JAX's by up to 1.1e-1
+    of max|g| there and 1.2e-2 on a 32³ volume (its outputs hold 1e-2,
+    ``test_aggregation_matches_jax``)."""
+    shape, jcls, pcls = AGGREGATIONS[kind]
+    x = rng.standard_normal(shape + (CIN,)).astype(np.float32)
+    jmod = jcls()
+    params, stats = random_variables(jmod, jnp.asarray(x), rng, jargs=(False,))
+    check_training_grads(rng, jmod, pcls(CIN), "aggregation", [x], params, stats)

@@ -11,8 +11,9 @@ carried by ``from_jax_variables`` and loaded strictly; the port's
 
 Tolerances, each of max|·| of the JAX tensor: eval outputs 1e-4
 (``SemRefine``'s disparity against JAX's eval-time composed head); a
-bottleneck in training (``check_jax_block``): output, input and parameter
-gradients 1e-4, running stats rtol 1e-4. ``max_disp`` 32 and 64 give D = 8
+bottleneck, the adaptive aggregation and the StereoNet and semantic-guided
+refinements in training (``check_jax_block``, ``check_training_grads``): output, input and parameter gradients 1e-4,
+running stats rtol 1e-4. ``max_disp`` 32 and 64 give D = 8
 and 16 at 1/4 resolution, one of each of JAX's correlation forms.
 """
 
@@ -33,6 +34,7 @@ from doubly_contrastive_semseg_tpu.utils.torch_convert import (  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.models import stereo, stereo_extras  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.utils import from_jax_variables  # noqa: E402
 from test_torch_deeplab import assert_same_tree, close, few_threads  # noqa: E402,F401
+from test_torch_stereo_3d import check_training_grads  # noqa: E402
 from test_torch_swiftnet_single import check_jax_block, random_variables  # noqa: E402
 
 B, H, W = 2, 64, 128
@@ -98,6 +100,23 @@ def test_adaptive_aggregation_matches_jax(rng, scales, supervised, impl):
     assert_same_tree(back_s, stats)
 
 
+@pytest.mark.parametrize("scales,fusions,deform,impl", [(1, 3, 2, "window"),
+                                                        (3, 1, 1, "gather")],
+                         ids=["StereoDCSS's: 1 scale, 3 fusions", "3 scales, 1 fusion"])
+def test_adaptive_aggregation_gradients_match_jax(rng, scales, fusions, deform, impl):
+    """The adaptive aggregation in training: as ``StereoDCSS`` builds it
+    (one scale, a simple fusion then two deformable ones, window form), and
+    one fusion at three scales for the cross-scale fuse layers."""
+    vols = [rng.standard_normal((B, h >> i, w >> i, 16 >> i)).astype(np.float32)
+            for i in range(scales)]
+    kw = dict(num_scales=scales, num_fusions=fusions, num_deform_blocks=deform,
+              deform_impl=impl)
+    jmod = jstereo.AdaptiveAggregation(**kw)
+    params, stats = _agg_variables(jmod, vols, rng)
+    check_training_grads(rng, jmod, stereo.AdaptiveAggregation(16, **kw), "aggregation", vols,
+                         params, stats, listed=True, jit=impl != "window")
+
+
 def _agg_variables(jmod, vols, rng):
     """``random_variables`` for a module whose first argument is a list."""
     from test_torch_swiftnet_single import fill
@@ -135,6 +154,22 @@ def test_stereo_refinements_match_jax(rng, kind):
                    *([nchw(sem)] if kind == "semantic" else []))
     assert tuple(got.shape) == (B, H, W)
     close(got.numpy(), want, kind)
+
+
+@pytest.mark.parametrize("kind", ["stereonet", "semantic"])
+def test_stereo_refinement_gradients_match_jax(rng, kind):
+    """The refinement in training, backward from one cotangent: output,
+    disparity, image and feature gradients, parameter gradients and running
+    stats (``check_training_grads``)."""
+    disp, img, sem = refinement_inputs(rng)
+    if kind == "stereonet":
+        jmod, port, xs = jstereo.StereoNetRefinement(), stereo.StereoNetRefinement(), [disp, img]
+    else:
+        jmod, port = jstereo.SemanticGuidedRefinement(), stereo.SemanticGuidedRefinement()
+        xs = [disp, img, sem]
+    params, stats = random_variables(jmod, jnp.asarray(disp), rng,
+                                     *(jnp.asarray(a) for a in xs[1:]), jargs=(False,))
+    check_training_grads(rng, jmod, port, "refinement", xs, params, stats, raw=(1,))
 
 
 @pytest.mark.parametrize("variant", list(stereo_extras.REFINE_NEW_VARIANTS))

@@ -14,7 +14,8 @@ offsets' rounding alone gave 1.1e-4–1.9e-4 of the disparity's max.
 
 Tolerances, each of max|·| of the JAX tensor: eval outputs and disparities
 1e-4; a refinement in training (output and running statistics) 1e-2 (JAX's
-one-pass BN variance); serving labels equal on ≥ 99.9 % of pixels;
+one-pass BN variance), StereoDRNet's output, gradients and running
+statistics 1e-4 (``check_training_grads``); serving labels equal on ≥ 99.9 % of pixels;
 ``inference --stereo``'s 16-bit PNG within 1 LSB on ≥ 99.9 % of pixels.
 Images are 64 × 64 with ``max_disp`` 16 (4 disparities at 1/4), GCNet's at
 ``max_disp`` 64, its smallest legal volume (16 disparities at 16 × 16).
@@ -44,7 +45,7 @@ from doubly_contrastive_semseg_tpu_torch.data.png import read_png, write_png  # 
 from doubly_contrastive_semseg_tpu_torch.models import stereo, stereo_extras  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.utils import from_jax_variables  # noqa: E402
 from test_torch_deeplab import assert_same_tree, close, few_threads  # noqa: E402,F401
-from test_torch_stereo_3d import port_state  # noqa: E402
+from test_torch_stereo_3d import check_training_grads, port_state  # noqa: E402
 from test_torch_swiftnet_single import count_head, random_variables  # noqa: E402
 
 # the scale of the offset conv of each deformable conv of HourglassRefinement
@@ -104,6 +105,21 @@ def test_warp_refinement_matches_jax(rng, kind, train):
         back_p, back_s = convert_reference_refinement(numpy_state(port))
         assert_same_tree(back_p, params)
         assert_same_tree(back_s, stats)
+
+
+def test_stereodrnet_refinement_gradients_match_jax(rng):
+    """StereoDRNet's refinement in training, backward from one cotangent:
+    output, input and parameter gradients and running stats at 1e-4 of
+    max|·| (``check_training_grads``). The hourglass is held only forward:
+    its gradients differ from JAX's by up to 3.9e-2 of max|g| on these
+    inputs, as its training outputs hold 1e-2 (its deformable samples)."""
+    disp = rng.uniform(0, 7, (B, H // 4, W // 4)).astype(np.float32)
+    left, right = (rng.uniform(0, 255, (B, H, W, 3)).astype(np.float32) for _ in range(2))
+    jmod = jextras.make_refinement("stereodrnet")
+    jin = [jnp.asarray(a) for a in (disp, left, right)]
+    params, stats = random_variables(jmod, jin[0], rng, *jin[1:], jargs=(False,))
+    check_training_grads(rng, jmod, stereo_extras.make_refinement("stereodrnet"), "refinement",
+                         [disp, left, right], params, stats, raw=(1, 2))
 
 
 def test_upsample_disp_matches_jax_call_site(rng):
