@@ -225,6 +225,25 @@ each route at the levels of the val batches (a, b) and of the inference
 pairs (e); ms a step with the loader's wait, EPE, D1 and >1 px, peak
 memory.
 
+Then the legacy stereo modules (phase 25): every ``make_stereo_feature``
+kind, both ``MobileNetV2Feature`` decoders, ``SegmentationBranches``,
+``SegmentationDeeplabV3`` and ``SimpleSegmentation`` on the trunk's maps,
+and ``DisparityFeature``, at 384×1248 × 1 bf16 (ms a forward, peak memory;
+random offsets on GANet's deformable convs), then at f32 96×96 on the card
+against the CPU; no kernel lies on this path and none launches.
+
+Last, ``--num_devices`` (phase 26): the one H100 is one card and NCCL
+refuses two ranks on one device, so two ranks share ``cuda:0`` over gloo,
+through the same step and collectives the trainers use
+(``tools/check_parallel.py``): the flagship step at f64, f32 and bf16 and
+the stereo step at f32 against one process on the global batch (f64: loss,
+parameters and BN statistics within 1e-5 of max; f32: loss 1e-5, BN
+statistics 1e-4; bf16: loss 1e-2), the dense-contrast step of 216 samples whose 8208
+gathered anchor rows take K3 and K4 on each rank where each rank's 4104
+would not, and the eval and stereo validation sums (K2 counted on each
+rank); one NCCL world-size-1 run of ``main``'s rank entry; ``main
+--num_devices 2`` on this one-card machine refused with ``ValueError``.
+
 Any failure raises and exits non-zero; so does a machine without CUDA or a
 directory without the package. The last line is ``{"ok": true, "device":
 {...}}``; the line before it lists each kernel's launches, error and times.
@@ -271,6 +290,11 @@ STEREO_SMALL = (256, 512)               # 22b: f32, the card's kernel routes vs 
 KITTI_HW, KITTI_PAD = (375, 1242), (384, 1248)   # 22d: KITTI frames, padded as JAX pads them
 OFFSET_STD = 0.12                       # 22: random offset convs, offsets well inside ±2 px
 STEREO_DISP_BAR = 1.0                   # 22a, 22c: mean |Δdisparity| bar, pixels
+# phase 25: the legacy stereo modules at KITTI's padded frame (a multiple of
+# 48, which GANet's /3 U-net needs, and of 16), and the card-vs-CPU side
+LEGACY_HW, LEGACY_SMALL = (384, 1248), 96
+# phase 26: the dense-contrast step on two ranks (216 · 19 · 2 = 8208 rows)
+PARALLEL_DENSE = (216, 96)
 # phase 23: the 3-D aggregations and warp-error refinements at the same widths
 KITTI_GCNET = (384, 1280)               # 23b: KITTI's 1242x375 padded to GCNet's multiple of 64
 STEREO_3D_PAIRS = (("stereonet", "hourglass"), ("psmnet_basic", "stereodrnet"),
@@ -4230,6 +4254,200 @@ def stereo_train_phase(torch, dev, card, reset, read):
     return out
 
 
+def legacy_stereo_modules(torch, dtype):
+    """{name: (module, inputs from the image)} of phase 25 in ``dtype``:
+    the heads read the MobileNetV2 trunk's list, computed once."""
+    from doubly_contrastive_semseg_tpu_torch.models import legacy_segmentation as ls
+    from doubly_contrastive_semseg_tpu_torch.models import stereo_features as sf
+
+    mods = {f"feature {k}": sf.make_stereo_feature(k, dtype=dtype)
+            for k in sf.STEREO_FEATURES}
+    mods["feature mobilenetv2 hourglass"] = sf.MobileNetV2Feature("hourglass", dtype=dtype)
+    mods["feature ganet mdconv"] = sf.GANetFeature(feature_mdconv=True, dtype=dtype)
+    mods["SegmentationBranches"] = ls.SegmentationBranches(dtype=dtype)
+    mods["SegmentationDeeplabV3"] = ls.SegmentationDeeplabV3(dtype=dtype)
+    for depth in (1, 2, 3):
+        mods[f"SimpleSegmentation depth {depth}"] = ls.SimpleSegmentation(depth=depth,
+                                                                          dtype=dtype)
+    mods["DisparityFeature"] = ls.DisparityFeature(dtype=dtype)
+    return mods
+
+
+def legacy_call(name, module, img, feats, hw):
+    """``module``'s forward on the image or on the trunk's maps ``feats``."""
+    if name == "SegmentationDeeplabV3":
+        return module(feats[5], hw)
+    if name == "SimpleSegmentation" or name.startswith("SimpleSegmentation"):
+        return module(feats[3])       # 32 channels at /8
+    if name in ("SegmentationBranches", "DisparityFeature"):
+        return module(feats)
+    return module(img)
+
+
+def flat(out):
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def legacy_stereo_phase(torch, dev, card, reset, read):
+    """25. The legacy stereo modules (module docstring): full width at
+    384×1248 bf16, then f32 96×96 card vs CPU. Returns the times."""
+    from doubly_contrastive_semseg_tpu_torch.models.blocks import init_weights
+    from doubly_contrastive_semseg_tpu_torch.models.stereo_features import MobileNetV2Feature
+
+    t25 = time.perf_counter()
+    gen = torch.Generator().manual_seed(25)
+    h, w = LEGACY_HW
+    log(f"== 25. legacy stereo modules at {w}x{h} x 1 bf16 (ms a forward, peak memory), then "
+        f"f32 {LEGACY_SMALL}x{LEGACY_SMALL} card vs CPU; {card}")
+    out = {"bf16": {}, "f32": {}}
+
+    def prepare(module, seed):
+        init_weights(module, torch.Generator().manual_seed(seed))
+        randomize_offsets(torch, module, torch.Generator().manual_seed(seed + 1))
+        return module.eval()
+
+    img = torch.randint(0, 256, (1, h, w, 3), generator=gen).float().div(255.0)
+    trunk = prepare(MobileNetV2Feature(dtype=torch.bfloat16), 0).to(dev)
+    reset()
+    with torch.no_grad():
+        feats = trunk(img.to(dev, torch.bfloat16))
+        for i, (name, m) in enumerate(legacy_stereo_modules(torch, torch.bfloat16).items()):
+            m = prepare(m, 10 + i).to(dev)
+            x = img.to(dev, torch.bfloat16)
+            y = flat(legacy_call(name, m, x, feats, (h, w)))
+            check(all(torch.isfinite(t.float()).all().item() for t in y),
+                  f"25: {name} gave a non-finite value")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: legacy_call(name, m, x, feats, (h, w)), iters=5, warmup=1)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            out["bf16"][name] = {"ms": ms, "peak_gb": peak,
+                                 "shapes": [tuple(t.shape) for t in y]}
+            log(f"  {name}: {ms:.3f} ms a forward, peak {peak:.2f} GB, out "
+                f"{[tuple(t.shape) for t in y]}")
+            del m
+    expect_launches(read(), "25a: the legacy stereo modules")
+
+    s = LEGACY_SMALL
+    small = torch.randint(0, 256, (2, s, s, 3), generator=gen).float().div(255.0)
+    trunk32 = prepare(MobileNetV2Feature(), 0)
+    with torch.no_grad():
+        feats_cpu = trunk32(small)
+        feats_dev = prepare(MobileNetV2Feature(), 0).to(dev)(small.to(dev))
+        errs = {"feature mobilenetv2 (trunk)": max(rel_err(torch, a, b)
+                                                   for a, b in zip(feats_dev, feats_cpu))}
+        for i, (name, m) in enumerate(legacy_stereo_modules(torch, torch.float32).items()):
+            m = prepare(m, 10 + i)
+            want = flat(legacy_call(name, m, small, feats_cpu, (s, s)))
+            got = flat(legacy_call(name, m.to(dev), small.to(dev), feats_dev, (s, s)))
+            errs[name] = max(rel_err(torch, a, b) for a, b in zip(got, want))
+    for name, e in errs.items():
+        log(f"  f32 {name}: card vs CPU {e:.3e} of max (bar 1e-3)")
+        check(e <= 1e-3, f"25b: {name} on the card disagrees with the CPU")
+    out["f32"] = errs
+    out["seconds"] = time.perf_counter() - t25
+    log(f"  {card}: phase 25 took {out['seconds']:.1f} s")
+    return out
+
+
+def parallel_phase(torch, dev, card, reset, read):
+    """26. ``--num_devices`` on the one card (module docstring). Returns the
+    launches and differences for the kernels line."""
+    from doubly_contrastive_semseg_tpu_torch import main as port_main
+    from doubly_contrastive_semseg_tpu_torch.parallel import free_init_method
+    from doubly_contrastive_semseg_tpu_torch.tools import check_parallel as cp
+
+    t26 = time.perf_counter()
+    b, s = PARALLEL_DENSE
+    log(f"== 26. --num_devices: two ranks on cuda:0 over gloo against one process; {card}")
+    jobs = [("flagship", {"dtype": "float64"}), ("flagship", {"dtype": "float32"}),
+            ("flagship", {"dtype": "bfloat16"}),
+            ("flagship", {"dtype": "float32", "b": b, "s": s}),
+            ("stereo", {"dtype": "float32"}), ("eval", {}), ("stereo_eval", {})]
+    t0 = time.perf_counter()
+    many = cp.run_ranks(jobs, 2, "cuda", "gloo")
+    t_many = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False     # as in the ranks: no tuning of each shape
+    try:
+        one = cp.run_one(jobs, "cuda")
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    t_one = time.perf_counter() - t0
+    log(f"  {len(jobs)} jobs: two ranks {t_many:.1f} s (spawn included), one process "
+        f"{t_one:.1f} s")
+    out = {"differences": []}
+    for (case, kw), m, o in zip(jobs, many, one):
+        d = cp.differences(m, o)
+        out["differences"].append({"case": case, **kw, **d})
+        log(f"  {case} {kw}: {json.dumps(d)}; launches rank 0 "
+            f"{ {k: v for k, v in m['launches'].items() if v} }, all ranks "
+            f"{ {k: v for k, v in m['launches_all_ranks'].items() if v} }, one process "
+            f"{ {k: v for k, v in o['launches'].items() if v} }")
+        dt = kw.get("dtype")
+        if dt == "float64":
+            check(d["loss"] <= 1e-5 and d["bn_stats"] <= 1e-5 and d["params"] <= 1e-5,
+                  f"26: {case} at f64 on two ranks differs from one process: {d}")
+        elif dt == "float32":
+            check(d["loss"] <= 1e-5 and d["bn_stats"] <= 1e-4,
+                  f"26: {case} at f32 on two ranks differs from one process: {d}")
+        elif dt == "bfloat16":
+            check(d["loss"] <= 1e-2, f"26: the bf16 flagship loss on two ranks: {d}")
+        elif case == "eval":
+            check(d["accum"] == 0.0, f"26: the two-rank eval sums differ: {d}")
+        else:
+            check(d["sums"] <= 1e-5, f"26: the two-rank stereo validation sums differ: {d}")
+    dense_m, dense_o = many[3], one[3]   # the f32 dense step
+    for name in ("contrastive_row_stats", "pos_sweep_layout", "pixel_contrast_pos_sweep"):
+        check(dense_m["launches"][name] >= 1 and dense_o["launches"][name] >= 1,
+              f"26: {name} must launch on the {b * 19 * 2} gathered rows on each rank and in "
+              "one process")
+    check(all(m["launches"]["contrastive_row_stats"] == 0 for m in many[:3]),
+          "26: the small flagship steps (152 rows) must not take K3")
+    ev_m, ev_o = many[5], one[5]
+    check(ev_m["launches_all_ranks"]["fused_stem_pool"] == 9
+          and ev_m["launches"]["fused_stem_pool"] == 6
+          and ev_o["launches"]["fused_stem_pool"] == 6,
+          "26: K2 must launch 3 times a val batch on each rank that holds a frame "
+          "(rank 0 both batches, rank 1 the first)")
+    out["dense_launches"] = {"rank 0": dense_m["launches"],
+                             "all ranks": dense_m["launches_all_ranks"]}
+    out["eval_launches"] = {"rank 0": ev_m["launches"], "all ranks": ev_m["launches_all_ranks"]}
+
+    # one NCCL rank of world size 1 through main's rank entry
+    with tempfile.TemporaryDirectory() as root:
+        argv = ["--dataset", "synthetic", "--debug", "--synthetic_hw", "64x128",
+                "--train_semantic", "--criterion", "supcon_pixelcontrast_focal", "--epochs",
+                "1", "--batch_size", "2", "--val_batch_size", "2", "--num_workers", "2",
+                "--no_build_summary", "--run_root", root]
+        code = ("import sys; from doubly_contrastive_semseg_tpu_torch.main import run_rank; "
+                "from doubly_contrastive_semseg_tpu_torch.parallel import free_init_method; "
+                f"run_rank(0, 1, free_init_method(), None, {argv!r}); "
+                "import torch.distributed as d; print('nccl world-size-1 ok')")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                           timeout=300, env={**os.environ, "PYTHONPATH": os.getcwd()})
+        log(f"  NCCL world-size-1 main run: exit {r.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s; "
+            f"{[ln for ln in r.stdout.splitlines() if ' took ' in ln or 'world-size' in ln]}")
+        check(r.returncode == 0 and "nccl world-size-1 ok" in r.stdout,
+              f"26: the NCCL rank failed:\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+        check(len(run_files(root)) > 0 and any(f.endswith("latest_checkpoint")
+                                               for f in run_files(root)),
+              "26: the NCCL rank wrote no checkpoint")
+        try:
+            port_main.main(argv + ["--num_devices", "2"])
+        except ValueError as e:
+            log(f"  main --num_devices 2 on this machine: ValueError({e})")
+            check(f"{torch.cuda.device_count()} visible" in str(e), f"26: {e}")
+        else:
+            raise RuntimeError("chip_smoke: 26: main --num_devices 2 ran on a one-card machine")
+    out["seconds"] = time.perf_counter() - t26
+    log(f"  {card}: phase 26 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4596,6 +4814,20 @@ def main() -> int:
         k: r["launches"]["fused_stem_pool"] for k, r in p24["c"].items()}
     kernels[0]["stereo_training"]["inference_stereo_launches_2_pairs"] = {
         dtype: r["launches"]["fused_stem_pool"] for dtype, r in p24["e"].items()}
+
+    # 25. the legacy stereo feature extractors and RODSNet heads
+    p25 = legacy_stereo_phase(torch, dev, card, reset, read)
+    log(f"== 25. done: {json.dumps({k: round(v['ms'], 3) for k, v in p25['bf16'].items()})}")
+
+    # 26. --num_devices: ranks, shards and the collectives
+    p26 = parallel_phase(torch, dev, card, reset, read)
+    kernels[0]["two_rank_validation"] = p26["eval_launches"]
+    for i, name in ((2, "contrastive_row_stats"), (3, "pos_sweep_layout"),
+                    (4, "pixel_contrast_pos_sweep")):
+        kernels[i]["two_rank_dense_step"] = {
+            "rows_gathered": PARALLEL_DENSE[0] * 19 * 2,
+            "rank_0": p26["dense_launches"]["rank 0"][name],
+            "all_ranks": p26["dense_launches"]["all ranks"][name]}
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

@@ -8,12 +8,14 @@ are JAX's. A ``Config`` built directly, without ``finalize``, has
 ``num_classes`` 19, the ACDC/Cityscapes count the JAX CLI fills in. Fields
 of the port alone: ``data_root``'s default (under the home directory, where
 JAX names a fixed path), ``filelist_root`` (JAX reads ``./filenames``) and
-``device`` (``cuda`` or ``cpu``, where JAX reads ``JAX_PLATFORMS``).
+``device`` (``cuda`` or ``cpu``, where JAX reads ``JAX_PLATFORMS``) and
+``--compute_dtype float64`` (float64 activations and parameters, for
+exactness checks on the CPU).
 
-Flags whose route is not ported (``--num_devices`` above 1) parse as in
-JAX; ``check_ported`` raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item when a run asks for one. ``is_stereo_run`` says which
-runs ``main`` gives the stereo trainer.
+``--num_devices`` N above 1 makes ``main`` start N ranks
+(``parallel/launch.py``, whose ``check_devices`` refuses fewer visible GPUs
+than N). ``is_stereo_run`` says which runs ``main`` gives the stereo
+trainer.
 """
 
 from __future__ import annotations
@@ -264,15 +266,6 @@ def is_stereo_run(cfg: Config) -> bool:
         and cfg.criterion == "none" and cfg.transfer_disparity)
 
 
-def check_ported(cfg: Config) -> None:
-    """Raises ``NotImplementedError`` naming the ``ROADMAP.md`` item for a
-    run that needs a route the port does not have yet: ``--num_devices``
-    above 1."""
-    if cfg.num_devices is not None and cfg.num_devices > 1:
-        raise NotImplementedError(f"not ported yet: --num_devices {cfg.num_devices} is "
-                                  "ROADMAP.md §1 item 6 (multi-GPU)")
-
-
 def _add_bool_flag(p: argparse.ArgumentParser, name: str, default: bool, help_: str = "") -> None:
     if default:
         p.add_argument(f"--no_{name}", dest=name, action="store_false", default=True, help=help_)
@@ -373,7 +366,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_bool_flag(p, "save_each_results", False)
     # JAX package additions
     p.add_argument("--compute_dtype", type=str, default=d.compute_dtype,
-                   choices=["bfloat16", "float32"])
+                   choices=["bfloat16", "float32", "float64"])
     p.add_argument("--num_devices", type=int, default=None)
     p.add_argument("--pretrained", type=str, default=None)
     p.add_argument("--deform_impl", type=str, default=d.deform_impl, choices=["window", "gather"])

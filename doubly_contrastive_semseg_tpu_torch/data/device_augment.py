@@ -24,6 +24,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..ops.edt import label_boundary_weights
+from ..parallel import rand_rows
 
 MEAN_FILL = (73.15, 82.90, 72.3)
 MIN_SCALE, MAX_SCALE = 0.5, 2.0
@@ -37,7 +38,8 @@ def sample_crop_params(generator: torch.Generator, b: int, h: int, w: int, crop:
     ⌊u · (max(side − box, 0) + 1)⌋ for u ~ U(0, 1)."""
     dev = generator.device
     v = 2 if two_crop else 1
-    u = torch.rand((3, v, b), generator=generator, device=dev, dtype=torch.float32)
+    # with several ranks, the global batch's draws, this rank's samples of them
+    u = rand_rows((3, v, b), generator, dev, dim=2)
     scale = u[0] * (MAX_SCALE - MIN_SCALE) + MIN_SCALE
     box = torch.floor(scale * crop)
     max_x = torch.clamp(torch.clamp(box, min=w) - box, min=0)

@@ -22,6 +22,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..parallel import global_mean, global_rows
 from .focal import boundary_aware_focal_loss, cross_entropy_loss
 from .pixel_contrast import pixel_contrast_loss
 from .supcon import supcon_loss
@@ -32,11 +33,11 @@ SEG_WEIGHT = 1.2  # reference trainer.py:123
 def weather_classifier_metrics(weather_logits: torch.Tensor, gt_weather: torch.Tensor
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CE and top-1 accuracy (%) of the weather head (reference
-    ``trainer.py:109-114``)."""
+    ``trainer.py:109-114``), over the global batch with several ranks."""
     gt = gt_weather.reshape(-1).long()
     logp = torch.log_softmax(weather_logits.float(), dim=-1)
-    ce = -logp.gather(-1, gt[:, None]).mean()
-    acc = (weather_logits.argmax(dim=-1) == gt).float().mean() * 100.0
+    ce = -global_mean(logp.gather(-1, gt[:, None]))
+    acc = global_mean((weather_logits.argmax(dim=-1) == gt).float()) * 100.0
     return ce, acc
 
 
@@ -66,7 +67,7 @@ def compute_total_loss(cfg, outputs: Dict[str, torch.Tensor],
     zero = torch.zeros((), dtype=torch.float32, device=outputs["seg"].device)
     comps = {"seg_loss": zero, "supcon_loss": zero, "simclr_loss": zero,
              "pixelcontrast_loss": zero, "ce_loss": zero}
-    bsz = batch["label"].shape[0]
+    bsz = global_rows(batch["label"].shape[0])
 
     def supcon(labels):
         return supcon_loss(outputs["supcon_proj"], labels, use_kernel=use_kernel)

@@ -16,6 +16,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..ops.interpolate import resize_bilinear
+from ..parallel import all_sum, global_value
 
 # the loss weight of each prediction, by the pyramid's length (reference
 # utils/init_trainer.py:227-233)
@@ -41,7 +42,7 @@ def disparity_loss(pred_pyramid: Sequence[torch.Tensor], gt_disp: torch.Tensor, 
     multiplies the error."""
     weights = PYRAMID_WEIGHTS[len(pred_pyramid)]
     valid = (gt_disp > 0) & (gt_disp < max_disp)
-    n = valid.sum().clamp_min(1)
+    n = all_sum(valid.sum()).clamp_min(1)   # the global batch's, with several ranks
     total = 0.0
     for w, pred in zip(weights, pred_pyramid):
         if pred.shape[-1] != gt_disp.shape[-1]:
@@ -51,7 +52,7 @@ def disparity_loss(pred_pyramid: Sequence[torch.Tensor], gt_disp: torch.Tensor, 
         if alphas is not None:
             err = err * alphas
         total = total + w * torch.where(valid, err, 0.0).sum() / n
-    return total
+    return global_value(total)
 
 
 def smoothness_loss(disp: torch.Tensor, img: torch.Tensor) -> torch.Tensor:

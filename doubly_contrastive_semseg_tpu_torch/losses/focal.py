@@ -2,7 +2,9 @@
 JAX package's ``losses/focal.py`` (reference ``utils/loss.py:6-80,
 208-247``).
 
-Nothing mutates its inputs. As in JAX, ``plain_focal`` and ``no_EDT`` keep
+Nothing mutates its inputs. With several ranks (``parallel/``) each mean
+is over the global batch's count, its value global and its gradient the
+rank's own rows'. As in JAX, ``plain_focal`` and ``no_EDT`` keep
 the reference's quirk: ignore pixels are remapped to class 0 and enter the
 numerator there, because those modes never multiply by the EDT weights
 that are 0 at ignore pixels.
@@ -13,6 +15,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from ..parallel import all_sum, global_value
 
 
 def _gather_logpt(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -48,9 +52,10 @@ def boundary_aware_focal_loss(logits: torch.Tensor, target: torch.Tensor,
         per_px = -class_weight[target_safe] * focal * logpt
     else:
         per_px = -class_weight[target_safe] * alphas * focal * logpt
-    n = (alphas > 0.0).sum()
+    # over the global batch's count: each rank's partial sum (parallel/)
+    n = all_sum((alphas > 0.0).sum())
     # plain_focal too normalises by #{α > 0} (reference loss.py:73)
-    return torch.where(n > 0, per_px.sum() / n.clamp_min(1), 0.0)
+    return global_value(torch.where(n > 0, per_px.sum() / n.clamp_min(1), 0.0))
 
 
 def cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor,
@@ -59,4 +64,5 @@ def cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor,
     ignore_index=255)``, reference ``init_trainer.py:224``)."""
     valid = target != ignore_id
     logpt = _gather_logpt(logits, torch.where(valid, target, 0))
-    return -torch.where(valid, logpt, 0.0).sum() / valid.sum().clamp_min(1)
+    return global_value(-torch.where(valid, logpt, 0.0).sum()
+                        / all_sum(valid.sum()).clamp_min(1))

@@ -18,6 +18,7 @@ import torch
 
 from ..ops.contrastive import pixel_contrast_loss_kernel
 from ..ops.interpolate import resize_nearest
+from ..parallel import gather_rows, rand_rows
 from .supcon import KERNEL_MIN_N
 
 NEG_INF = -1e30
@@ -44,7 +45,7 @@ def _hard_anchor_sampling(feats: torch.Tensor, labels: torch.Tensor,
         r = -torch.arange(p, dtype=torch.float32, device=feats.device).expand(
             b, num_classes, p)
     else:
-        r = torch.rand((b, num_classes, p), generator=generator, device=feats.device)
+        r = rand_rows((b, num_classes, p), generator, feats.device)
     hard_idx = torch.where(hard, r, NEG_INF).topk(2, dim=-1).indices   # (B, C, 2)
     easy_idx = torch.where(easy, r, NEG_INF).topk(2, dim=-1).indices
     has_hard = hard.any(dim=-1)
@@ -116,7 +117,9 @@ def pixel_contrast_loss(feats: torch.Tensor, labels: torch.Tensor,
     feats (B, h, w, D) decoder features, labels (B, H, W) at crop
     resolution, predict_logits (B, h, w, C). Labels are nearest-downsampled
     to (h, w) and predictions argmaxed; the ignore label 255 matches no
-    class, so ignored pixels drop out of every mask."""
+    class, so ignored pixels drop out of every mask. With several ranks
+    (``parallel/``) each draws the global batch's keys and samples its own
+    rows' anchors, and the anchors of every rank are contrasted together."""
     b, h, w, dd = feats.shape
     preds = resize_nearest(predict_logits.argmax(dim=-1), (h, w))
     labels_ds = resize_nearest(labels, (h, w))
@@ -124,5 +127,6 @@ def pixel_contrast_loss(feats: torch.Tensor, labels: torch.Tensor,
         feats.reshape(b, h * w, dd).float(), labels_ds.reshape(b, -1),
         preds.reshape(b, -1).to(labels_ds.dtype), num_classes, generator,
         max_views=max_views, deterministic_select=deterministic_select)
-    return _masked_contrastive(anchor_feats, anchor_labels, valid, temperature,
-                               base_temperature, use_kernel=use_kernel)
+    return _masked_contrastive(gather_rows(anchor_feats), gather_rows(anchor_labels),
+                               gather_rows(valid), temperature, base_temperature,
+                               use_kernel=use_kernel)

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.contrastive import supcon_loss_kernel
+from ..parallel import gather_rows
 
 # From this many rows (2B) on the card, the loss goes through the contrastive
 # kernel (ops/contrastive.py): the JAX package's PALLAS_MIN_N
@@ -28,7 +29,11 @@ def supcon_loss(features: torch.Tensor, labels: Optional[torch.Tensor] = None,
     """SupCon (``labels`` (B,) given) or SimCLR (``labels`` None) over
     (B, 2, D) projected two-view embeddings; the mean over all 2B anchors.
     ``use_kernel`` None routes to the kernel when 2B ≥ ``KERNEL_MIN_N`` and
-    the features are on the card; True/False forces the route."""
+    the features are on the card; True/False forces the route. With several
+    ranks the features and labels are gathered first (``parallel/``): the
+    loss is the global batch's, the route chosen by its 2B."""
+    features = gather_rows(features)
+    labels = None if labels is None else gather_rows(labels.reshape(-1))
     if use_kernel is None:
         use_kernel = 2 * features.shape[0] >= KERNEL_MIN_N and features.is_cuda
     if use_kernel:

@@ -1,4 +1,4 @@
-"""Training CLI of the port — JAX ``main.py:15-63`` at world size 1:
+"""Training CLI of the port — JAX ``main.py:15-63``:
 seed, build the ``Trainer``, then the epoch loop train → validate from
 ``cur_epochs`` to ``--epochs``; ``--test_only`` runs one validation pass;
 ``--tsne`` renders the t-SNE of the model's features
@@ -20,9 +20,16 @@ writes no checkpoint.
         --debug --device cpu
 
 Runs on the card unless ``--device cpu`` is given; with ``cuda`` and no
-card it raises. ``--num_devices`` above 1 raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item (``config.py::check_ported``, called by both
-trainers).
+card it raises. ``--num_devices`` N above 1 (JAX's mesh over N devices)
+starts N ranks with ``torch.multiprocessing`` (``parallel/launch.py``), rank
+r on ``cuda:r`` with NCCL, or on the CPU with gloo; each runs the same
+``run`` on its share of every batch (``parallel/``); ``--tsne`` runs in
+one process. Fewer visible GPUs than N raise ``ValueError``. SIGTERM/SIGINT to this process stop every rank
+after the same finished step, rank 0 writing the rescue checkpoint, and
+this process exits as one process would (143 on SIGTERM).
+
+    python -m doubly_contrastive_semseg_tpu_torch.main --dataset synthetic \
+        --train_semantic --epochs 1 --batch_size 4 --num_devices 2 --device cpu
 """
 
 from __future__ import annotations
@@ -35,15 +42,42 @@ from typing import Optional, Sequence, Union
 import torch
 
 from .config import is_stereo_run, parse_args
+from .parallel import active, check_devices, leave, make_mesh, spawn_ranks, world
 from .tools.tsne import Viz
 from .train import StereoTrainer, Trainer
 from .utils import seed_all_rng
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Union[Trainer, StereoTrainer, Viz]:
+def main(argv: Optional[Sequence[str]] = None) -> Union[Trainer, StereoTrainer, Viz, None]:
     """Runs the CLI on ``argv`` (``sys.argv[1:]`` when None) and returns the
-    trainer (under ``--tsne`` the ``Viz``)."""
+    trainer (under ``--tsne`` the ``Viz``); with ``--num_devices`` above 1
+    it waits for the ranks and returns None."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     cfg = parse_args(argv)
+    if cfg.test_only and cfg.resume is None and not cfg.pretrained and not cfg.tsne:
+        raise RuntimeError("--test_only requires --resume or --pretrained")
+    if (cfg.num_devices or 1) > 1 and not cfg.tsne:
+        check_devices(cfg)
+        spawn_ranks(run_rank, cfg.num_devices, (argv,))
+        return None
+    return run(cfg)
+
+
+def run_rank(rank: int, n: int, init_method: str, stop, argv: Sequence[str]) -> None:
+    """Rank ``rank`` of ``n``: joins the process group (``cuda:rank`` with
+    NCCL, or gloo with ``--device cpu``) and runs the CLI's ``run``."""
+    cfg = parse_args(argv)
+    device = torch.device("cuda", rank) if cfg.device == "cuda" else torch.device("cpu")
+    make_mesh(rank, n, init_method, device, stop=stop)
+    try:
+        run(cfg)
+    finally:
+        leave()
+
+
+def run(cfg) -> Union[Trainer, StereoTrainer, Viz]:
+    """Seeds, builds the trainer on this rank's device and runs the epochs
+    (or one validation under ``--test_only``, the t-SNE under ``--tsne``)."""
     seed_all_rng(cfg.random_seed)
 
     if cfg.tsne:
@@ -51,13 +85,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Union[Trainer, StereoTrainer, 
         viz.run()
         return viz
 
-    if cfg.test_only and cfg.resume is None and not cfg.pretrained:
-        raise RuntimeError("--test_only requires --resume or --pretrained")
-
+    device = world().device if active() else cfg.device
     if cfg.device == "cuda":
         torch.backends.cudnn.benchmark = True
     if is_stereo_run(cfg):
-        stereo = StereoTrainer(cfg, device=cfg.device)
+        stereo = StereoTrainer(cfg, device=device)
         if cfg.test_only:
             stereo.validate(save_ckpt=False)
             return stereo
@@ -65,9 +97,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Union[Trainer, StereoTrainer, 
             stereo.cur_epochs = epoch
             stereo.train()
             stereo.validate()
+            stereo.check_stop()
         return stereo
 
-    trainer = Trainer(cfg, device=cfg.device)
+    trainer = Trainer(cfg, device=device)
 
     if cfg.test_only:
         trainer.test()
@@ -80,6 +113,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Union[Trainer, StereoTrainer, 
         trainer.validate()
         trainer.epoch_seconds.append(time.time() - t0)
         logging.info("epoch %d took %.1f s", epoch, time.time() - t0)
+        trainer.check_stop()
     return trainer
 
 

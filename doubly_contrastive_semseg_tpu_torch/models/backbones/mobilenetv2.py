@@ -45,10 +45,11 @@ class ReLU6(nn.Module):
 
 
 def conv_bn_relu6(in_features: int, features: int, k: int = 3, stride: int = 1,
-                  dilation: int = 1, groups: int = 1) -> nn.Sequential:
-    """conv (padding 0) → BN → ReLU6, the fork's ``ConvBNReLU``."""
-    return nn.Sequential(Conv2d(in_features, features, k, stride=stride, dilation=dilation,
-                                groups=groups, bias=False),
+                  dilation: int = 1, groups: int = 1, padding: int = 0) -> nn.Sequential:
+    """conv (padding 0 unless given) → BN → ReLU6, the fork's ``ConvBNReLU``
+    (the stereo trunk's stem passes a padding, JAX ``ConvBNReLU6.pad``)."""
+    return nn.Sequential(Conv2d(in_features, features, k, stride=stride, padding=padding,
+                                dilation=dilation, groups=groups, bias=False),
                          batch_norm(features), ReLU6())
 
 

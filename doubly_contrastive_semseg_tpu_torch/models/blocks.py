@@ -24,6 +24,8 @@ import torch.nn.functional as F
 from ..ops.blend import blend_kernel_supported, fused_upsample_blend
 from ..ops.interpolate import adaptive_avg_pool, resize_bilinear
 from ..ops.seghead import fold_bn
+from ..parallel import active as parallel_active
+from ..parallel import rand_rows, sync_batch_norm, world
 
 # torch BatchNorm momentum of the reference (network/utils.py:36)
 TORCH_BN_MOMENTUM = 0.1
@@ -33,7 +35,8 @@ class TorchBatchNorm(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1 unless given: JAX
     ``batch_norm``'s ``momentum`` and ``epsilon``, ``blocks.py:117-131``). In
     eval it applies the folded float32 scale/shift in the activation dtype;
-    in training it is ``nn.BatchNorm2d`` itself."""
+    in training it is ``nn.BatchNorm2d`` itself, or, with several ranks,
+    ``parallel.sync_batch_norm`` over the global batch."""
 
     def __init__(self, features: int, momentum: float = TORCH_BN_MOMENTUM,
                  eps: float = 1e-5):
@@ -46,7 +49,7 @@ class TorchBatchNorm(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            return super().forward(x)
+            return sync_batch_norm(self, x) if parallel_active() else super().forward(x)
         scale, shift = self.folded()
         return torch.addcmul(shift.to(x.dtype)[:, None, None], x,
                              scale.to(x.dtype)[:, None, None])
@@ -67,7 +70,7 @@ class TorchBatchNorm3d(nn.BatchNorm3d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            return super().forward(x)
+            return sync_batch_norm(self, x) if parallel_active() else super().forward(x)
         scale, shift = self.folded()
         return torch.addcmul(shift.to(x.dtype)[:, None, None, None], x,
                              scale.to(x.dtype)[:, None, None, None])
@@ -169,8 +172,14 @@ class Dropout(nn.Module):
         (B, 1, 1, C) uniforms ≥ p."""
         b, c, h, w = x.shape
         shape = (b, 1, 1, c) if self.spatial else (b, h, w, c)
-        u = torch.rand(shape, generator=self.generator, device=x.device)
+        u = rand_rows(shape, self.generator, x.device, blocks=self.blocks(b))
         return (u >= self.p).permute(0, 3, 1, 2)
+
+    @staticmethod
+    def blocks(b: int) -> int:
+        """The blocks of the batch's samples in ``b`` rows (two views: 2)
+        with several ranks, whose masks are the global batch's rows."""
+        return b // world().rows[world().rank] if parallel_active() else 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -184,7 +193,8 @@ class DropConnect(Dropout):
     1, 1) mask; the kept samples are scaled by 1/(1 − p)."""
 
     def keep_mask(self, x: torch.Tensor) -> torch.Tensor:
-        u = torch.rand((x.shape[0], 1, 1, 1), generator=self.generator, device=x.device)
+        u = rand_rows((x.shape[0], 1, 1, 1), self.generator, x.device,
+                      blocks=self.blocks(x.shape[0]))
         return u >= self.p
 
 

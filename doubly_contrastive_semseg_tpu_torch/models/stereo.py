@@ -393,5 +393,7 @@ def build_stereo_model(cfg=None, device="cuda", seed: int = 0, **kwargs) -> Ster
         for m in model.modules():
             if isinstance(m, DeformConv2d):
                 m.reset_offsets()
+    if kw.get("dtype") == torch.float64:   # weathernet._DTYPES
+        model.double()
     return to_channels_last(model.to(device)).eval()
 

@@ -29,7 +29,10 @@ _PLAIN = {"efficientnetb0": PyramidEfficientNet, "mobilenetv2": PyramidMobileNet
 # JAX's DCSSModel backbones (weathernet.py:88-122, build_model :209-212)
 BACKBONES = ("resnet18", "resnet34") + tuple(_PLAIN)
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# float64 (the port's alone) for exactness checks on the CPU, where no
+# rounding-level difference may flip a ReLU gate: its parameters are float64
+# too (one-process BatchNorm takes one dtype)
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float64": torch.float64}
 
 
 def nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -188,4 +191,6 @@ def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
     else:
         raise NotImplementedError(f"model {cfg.model}")
     init_weights(model, torch.Generator().manual_seed(seed))
+    if dtype == torch.float64:
+        model.double()
     return model.to(device=device, memory_format=torch.channels_last).eval()

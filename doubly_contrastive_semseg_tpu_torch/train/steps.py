@@ -25,6 +25,7 @@ from ..losses.focal import cross_entropy_loss
 from ..metrics.confusion import (confusion_matrix, confusion_matrix_per_weather,
                                  weather_confusion_matrix)
 from ..models.blocks import set_dropout_generator
+from ..parallel import all_reduce_grads, local_share, world
 from .optimizer import set_lr
 from .state import TrainState
 
@@ -87,7 +88,10 @@ def make_train_step(model, cfg, optimizer: torch.optim.Optimizer) -> Callable:
     in training mode, backward, one optimizer update at the scheduled lr,
     ``state.step`` += 1. The metrics are the loss components (detached)
     and, on a weather dataset, the weather head's CE and accuracy, which
-    stay out of the total (reference ``trainer.py:205-206``)."""
+    stay out of the total (reference ``trainer.py:205-206``). With several
+    ranks (``parallel/``) ``batch`` is the rank's share of the global batch:
+    the losses and metrics are the global batch's, and the gradients are
+    summed over the ranks before the update."""
     on_weather = cfg.dataset in WEATHER_DATASETS
 
     def train_step(state: TrainState, batch: Dict,
@@ -96,6 +100,7 @@ def make_train_step(model, cfg, optimizer: torch.optim.Optimizer) -> Callable:
         optimizer.zero_grad(set_to_none=True)
         total, comps, outputs = compute_loss(model, cfg, batch, generator)
         total.backward()
+        all_reduce_grads(model)
         set_lr(optimizer, cfg, state.step)
         optimizer.step()
         state.step += 1
@@ -144,6 +149,7 @@ def make_stereo_train_step(model, cfg, optimizer: torch.optim.Optimizer) -> Call
         optimizer.zero_grad(set_to_none=True)
         total, comps, _ = stereo_loss(model, cfg, batch)
         total.backward()
+        all_reduce_grads(model)
         set_lr(optimizer, cfg, state.step)
         optimizer.step()
         state.step += 1
@@ -161,7 +167,10 @@ def make_eval_step(model, cfg) -> Callable:
     ``trainer.py:349-354``). The weather accumulators are updated on a
     weather dataset for a batch with ``weather``, as in JAX; at eval there
     is no two-view split, so ``weather_logits`` is the reference's
-    ``weather_clf(fine_feat)`` (``trainer.py:345-347``)."""
+    ``weather_clf(fine_feat)`` (``trainer.py:345-347``). With several ranks
+    ``batch`` is the rank's share of a val batch, which may be empty: the
+    accuracy enters weighted by that share and rank 0 alone counts the
+    batch, so the sums over the ranks are the one-process ones."""
     c, w = cfg.num_classes, cfg.weather_num
     on_weather = cfg.dataset in WEATHER_DATASETS
 
@@ -170,6 +179,8 @@ def make_eval_step(model, cfg) -> Callable:
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         model.eval()
         batch = ingest_batch(batch)
+        if batch["left"].shape[0] == 0:
+            return torch.zeros((0,) + tuple(batch["left"].shape[1:3]), dtype=torch.int32), accum
         outputs = model(batch["left"], return_supcon_feature=False)
         preds = outputs["seg"].argmax(-1).to(torch.int32)
         accum = dict(accum)
@@ -183,8 +194,8 @@ def make_eval_step(model, cfg) -> Callable:
             wcm, wacc = weather_confusion_matrix(batch["weather"],
                                                  outputs["weather_logits"], w)
             accum["cm_weather"] = accum["cm_weather"] + wcm
-            accum["weather_acc_sum"] = accum["weather_acc_sum"] + wacc
-            accum["n_batches"] = accum["n_batches"] + 1
+            accum["weather_acc_sum"] = accum["weather_acc_sum"] + wacc * local_share()
+            accum["n_batches"] = accum["n_batches"] + int(world().rank == 0)
         return preds, accum
 
     return eval_step

@@ -1,6 +1,6 @@
 """Trainer: the train and validate loops of one run — port of the JAX
 package's ``train/trainer.py`` (reference ``trainer.py:27-666``,
-``utils/init_trainer.py:21-324``), at world size 1.
+``utils/init_trainer.py:21-324``).
 
 Init order as in JAX: saver → datasets and the loaders (``--loader``: the
 threaded ``DataLoader`` or ``GrainDataLoader``) → class weights → model →
@@ -19,6 +19,15 @@ are not its uninterrupted run's; the port keys both by the update.) With
 ``--loader grain`` a rescue checkpoint also holds the loader's position, and
 a resume from it continues the same epoch at the next batch, the samples
 and (with ``--no_host_augment``) the draws those of the uninterrupted run.
+
+With ``--num_devices`` N (``parallel/``, one process a rank, started by
+``main``) every rank reads the same batches and keeps its share
+(``shard_batch``); the train step and the eval sums are the global
+batch's. Rank 0 alone writes the run directory, logs, summaries,
+checkpoints, ``val_results.txt`` and the val images, and the others meet
+it at a barrier after each checkpoint. A signal stops every rank after the
+same finished step (``ranks.SignalStop``, read in ``check_stop``), and
+rank 0 writes the rescue checkpoint, which a resume takes back at any N.
 """
 
 from __future__ import annotations
@@ -32,15 +41,17 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..config import Config, check_ported
+from .. import parallel
+from ..config import Config
 from ..data import augment_batch, get_dataset, make_loader, to_device
 from ..data.png import write_png
 from ..data.transforms import blend_pil, thumbnail_pil
 from ..data.weights import load_or_compute_class_weights
 from ..metrics import Evaluator
 from ..models import build_model
-from ..utils import Saver, SummaryWriter, count_parameters, load_pretrained, setup_logger
+from ..utils import count_parameters, load_pretrained
 from .checkpoints import CheckpointManager
+from .ranks import SignalStop, make_saver, make_writer, setup_run_logger
 from .optimizer import build_lr_schedule, build_optimizer
 from .state import TrainState
 from .steps import check_weather, init_eval_accum, make_eval_step, make_train_step
@@ -53,16 +64,16 @@ def keyed_generator(device: torch.device, seed: int, step: int) -> torch.Generat
 
 class Trainer:
     def __init__(self, cfg: Config, device="cuda"):
-        check_ported(cfg)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: CUDA is not available; pass device='cpu' "
                                "(--device cpu) to run on the CPU")
         self.cfg = cfg
-        # --- saver / logging (init_trainer.py:317-320)
-        self.saver = Saver(cfg)
+        # --- saver / logging (init_trainer.py:317-320), rank 0's
+        self.saver = make_saver(cfg)
+        self.main_rank = self.saver.write
         self.saver.save_experiment_config()
-        setup_logger(self.saver.experiment_dir, f"{cfg.model}_{cfg.dataset}")
+        setup_run_logger(self.saver, f"{cfg.model}_{cfg.dataset}")
         self.cfg.experiment_dir = self.saver.experiment_dir
 
         # --- data (init_trainer.py:79-95)
@@ -99,8 +110,8 @@ class Trainer:
         self.saver.save_parameters(n_params)
         logging.info("model %s: %.2fM params on %s", cfg.model, n_params / 1e6, self.device)
 
-        # --- checkpoints (init_trainer.py:242-281)
-        self.ckpt = CheckpointManager(self.saver.checkpoint_dir)
+        # --- checkpoints (init_trainer.py:242-281), written by rank 0
+        self.ckpt = CheckpointManager(self.saver.checkpoint_dir) if self.main_rank else None
         self.cur_epochs = 0
         self.num_iter = 0
         self.best_score = 0.0
@@ -109,8 +120,8 @@ class Trainer:
         if cfg.resume is not None:
             if not os.path.isfile(cfg.resume):
                 raise RuntimeError(f"=> no checkpoint found at '{cfg.resume}'")
-            self.state, meta = self.ckpt.restore(cfg.resume, self.state,
-                                                 continue_training=cfg.continue_training)
+            self.state, meta = CheckpointManager.restore(
+                cfg.resume, self.state, continue_training=cfg.continue_training)
             if cfg.continue_training:
                 if meta.get("mid_epoch") and meta.get("loader_state") is not None \
                         and hasattr(self.train_loader, "set_state"):
@@ -138,13 +149,14 @@ class Trainer:
                 logging.info("Weights restored from %s", cfg.resume)
         else:
             logging.info("[!] No checkpoints found, training from init...")
+        parallel.broadcast_module(self.model)
 
         # --- steps
         self._train_step = make_train_step(self.model, cfg, self.optimizer)
         self._eval_step = make_eval_step(self.model, cfg)
 
         # --- summaries (init_trainer.py:322-324)
-        self.writer = SummaryWriter(self.saver.experiment_dir, enable_tb=not cfg.no_build_summary)
+        self.writer = make_writer(self.saver, not cfg.no_build_summary)
         self.writer.init_wandb(cfg.wandb)
 
         self.time_val: list = []
@@ -161,6 +173,10 @@ class Trainer:
         self._install_signal_rescue()
 
     def _install_signal_rescue(self) -> None:
+        if parallel.active():   # the ranks agree at the end of a step (check_stop)
+            self._signal_stop = SignalStop()
+            return
+
         def rescue(signum, frame):
             for sig in (signal.SIGTERM, signal.SIGINT):   # no second rescue
                 signal.signal(sig, signal.SIG_IGN)
@@ -189,15 +205,31 @@ class Trainer:
         loader_state = None
         if hasattr(self.train_loader, "get_state"):
             loader_state = self.train_loader.get_state()
-        self.ckpt.save("rescue_checkpoint", self.state, self.cur_epochs, None,
-                       self.best_score, self.best_score_epoch, loader_state=loader_state)
+        if self.main_rank:
+            self.ckpt.save("rescue_checkpoint", self.state, self.cur_epochs, None,
+                           self.best_score, self.best_score_epoch, loader_state=loader_state)
+        parallel.barrier()
+
+    def check_stop(self) -> None:
+        """With several ranks: once a signal reached any rank or the
+        launcher, every rank stops here, after the same finished step, and
+        rank 0 writes the rescue checkpoint (``SystemExit(128 + signum)``,
+        as the one-process handler)."""
+        if not parallel.active():
+            return
+        signum = self._signal_stop.agreed()
+        if signum:
+            if self.main_rank:
+                logging.warning("signal %s: writing rescue checkpoint...", signum)
+            self._write_rescue()
+            raise SystemExit(128 + signum)
 
     # ----------------------------------------------------------------- train
     def train(self) -> None:
         cfg = self.cfg
         check_weather(cfg)
         logging.info("training...")
-        if cfg.trace and self.cur_epochs == cfg.start_epoch:
+        if cfg.trace and self.cur_epochs == cfg.start_epoch and self.main_rank:
             # --trace: a torch.profiler trace of the first epoch
             # (tensorboard --logdir <experiment_dir>/profile)
             from ..utils.profiling import trace
@@ -225,7 +257,7 @@ class Trainer:
                 self.num_iter += 1
                 step_start = time.time()
 
-                db = to_device(batch, self.device, self.class_weight)
+                db = to_device(parallel.shard_batch(batch), self.device, self.class_weight)
                 step = self.state.step
                 if not cfg.host_augment:
                     db.update(augment_batch(
@@ -266,6 +298,7 @@ class Trainer:
                 last_data_time = time.time()
                 self.step_times.append((self.cur_epochs, wait, last_data_time - step_start))
                 self.step_samples.append((self.cur_epochs, list(batch.get("left_name", ()))))
+                self.check_stop()
         finally:
             batches.close()   # stops the loader's threads on any exit
 
@@ -307,6 +340,7 @@ class Trainer:
         frames = 0
         for i, batch in enumerate(self.val_loader):
             self.time_val_dataloader.append(time.time() - start)
+            batch = parallel.shard_batch(batch)
             db = to_device(batch, self.device)
             t0 = time.time()
             preds, accum = self._eval_step(db, accum)
@@ -319,14 +353,17 @@ class Trainer:
                     logging.info("val [%3d/%3d] BT (bsz=%d): %.3f(s) (BT/img: %.3f(s))",
                                  i, num_val, cfg.val_batch_size, fwt,
                                  sum(self.time_val) / len(self.time_val) / cfg.val_batch_size)
-            if cfg.save_val_results:
+            if cfg.save_val_results and self.main_rank:
                 self.save_valid_img_in_results(batch["left"], batch.get("label"),
                                                preds.cpu().numpy(), i, batch.get("frame_name"))
             frames += len(batch["left"])
             start = time.time()
 
-        host = {k: v.cpu().numpy() for k, v in accum.items()}
+        host = {k: parallel.all_sum(v).cpu().numpy() for k, v in accum.items()}
         self.val_times.append((self.cur_epochs, frames, time.time() - t_pass))
+        if not self.main_rank:   # rank 0 alone reports and saves
+            parallel.barrier()
+            return {}
         n_b = max(float(host["n_batches"]), 1.0)
         self.evaluator.merge_device_batch(host["cm"], host["cm_weather_sem"], host["cm_weather"],
                                           weather_acc=float(host["weather_acc_sum"]) / n_b)
@@ -347,6 +384,7 @@ class Trainer:
         if self.time_val:
             logging.info("average fwd time per img: %.3f (s)",
                          sum(self.time_val) / len(self.time_val) / cfg.val_batch_size)
+        parallel.barrier()
         return score
 
     def test(self) -> Dict:

@@ -1,6 +1,5 @@
 """StereoTrainer: disparity (and optionally semantic) training of
-``StereoDCSS`` — port of the JAX package's ``train/trainer_stereo.py``, at
-world size 1.
+``StereoDCSS`` — port of the JAX package's ``train/trainer_stereo.py``.
 
 ``main`` sends ``--dataset sceneflow|kitti_2015|kitti_mix``, and the
 synthetic disparity route (``--dataset synthetic --transfer_disparity
@@ -33,6 +32,13 @@ port draws the same samples (the first batch of epoch 0) there, so that the
 epochs see JAX's crops and colours. JAX's threaded loader may read ahead a
 few samples more; how many depends on its threads' timing, so the port
 reads exactly the first batch.
+
+With ``--num_devices`` N (``parallel/``) every rank reads the same batches
+and keeps its share, the step is the global batch's, and each val batch's
+EPE, D1 and >1 px share are the global batch's (the ranks' sums, all-reduced
+once at the end of the pass). Rank 0 alone writes the run directory, logs,
+summaries and checkpoints. A signal stops every rank after the same
+finished step, without a checkpoint, as one process stops.
 """
 
 from __future__ import annotations
@@ -45,18 +51,20 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ..config import Config, check_ported
+from .. import parallel
+from ..config import Config
 from ..data.cityscapes import Cityscapes
 from ..data.loader import DataLoader, to_device
 from ..data.stereo_transforms import RandomColor, StereoRandomCrop
 from ..data.synthetic import SyntheticStereoDataset
 from ..data.transforms import Compose, ThreadSafeRng, ToArrays
-from ..metrics.disparity import d1_metric, epe_metric, thres_metric
+from ..metrics.disparity import disparity_sums, metrics_from_sums
 from ..models.stereo import build_stereo_model
-from ..utils import Saver, SummaryWriter, count_parameters, setup_logger
+from ..utils import count_parameters
 from .checkpoints import CheckpointManager
 from .optimizer import build_stereo_optimizer
 from .state import TrainState
+from .ranks import SignalStop, make_saver, make_writer, setup_run_logger
 from .steps import ingest_batch, make_stereo_train_step
 
 # the (train crop, val pad-or-crop) shapes of the stereo lists while the
@@ -98,15 +106,15 @@ def _stereo_dataset(cfg, mode: str):
 
 class StereoTrainer:
     def __init__(self, cfg: Config, device="cuda"):
-        check_ported(cfg)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("StereoTrainer: CUDA is not available; pass device='cpu' "
                                "(--device cpu) to run on the CPU")
         self.cfg = cfg
-        self.saver = Saver(cfg)
+        self.saver = make_saver(cfg)
+        self.main_rank = self.saver.write
         self.saver.save_experiment_config()
-        setup_logger(self.saver.experiment_dir, f"stereo_{cfg.dataset}")
+        setup_run_logger(self.saver, f"stereo_{cfg.dataset}")
 
         self.train_dst = _stereo_dataset(cfg, "train")
         self.val_dst = _stereo_dataset(cfg, "val")
@@ -131,7 +139,7 @@ class StereoTrainer:
         logging.info("stereo model: %.2fM params on %s",
                      count_parameters(self.model) / 1e6, self.device)
 
-        self.ckpt = CheckpointManager(self.saver.checkpoint_dir)
+        self.ckpt = CheckpointManager(self.saver.checkpoint_dir) if self.main_rank else None
         self.cur_epochs = 0
         self.num_iter = 0
         self.best_epe = float("inf")
@@ -139,8 +147,8 @@ class StereoTrainer:
             # the recipes chain checkpoints: sceneflow pretraining, then KITTI
             if not os.path.isfile(cfg.resume):
                 raise RuntimeError(f"=> no checkpoint found at '{cfg.resume}'")
-            self.state, meta = self.ckpt.restore(cfg.resume, self.state,
-                                                 continue_training=cfg.continue_training)
+            self.state, meta = CheckpointManager.restore(
+                cfg.resume, self.state, continue_training=cfg.continue_training)
             if cfg.continue_training:
                 self.cur_epochs = int(meta.get("epoch", -1)) + 1
                 self.num_iter = int(meta.get("num_iter", 0)) + 1
@@ -151,9 +159,10 @@ class StereoTrainer:
                              cfg.resume, self.cur_epochs)
             else:
                 logging.info("Weights restored from %s", cfg.resume)
+        parallel.broadcast_module(self.model)
         self._train_step = make_stereo_train_step(self.model, cfg, self.optimizer)
-        self.writer = SummaryWriter(self.saver.experiment_dir,
-                                    enable_tb=not cfg.no_build_summary)
+        self.writer = make_writer(self.saver, not cfg.no_build_summary)
+        self._signal_stop = SignalStop() if parallel.active() else None
 
         # per train step (epoch, loader wait s, host s of the step); per
         # epoch the mean of each loss component
@@ -182,7 +191,8 @@ class StereoTrainer:
                 wait = time.time() - last
                 self.num_iter += 1
                 t0 = time.time()
-                metrics = self._train_step(self.state, to_device(batch, self.device))
+                metrics = self._train_step(
+                    self.state, to_device(parallel.shard_batch(batch), self.device))
                 for k, v in metrics.items():   # summed on the device
                     sums[k] = sums[k] + v if k in sums else v
                 n += 1
@@ -193,36 +203,52 @@ class StereoTrainer:
                                            self.num_iter)
                 last = time.time()
                 self.step_times.append((self.cur_epochs, wait, last - t0))
+                self.check_stop()
         finally:
             batches.close()   # stops the loader's threads on any exit
         self.epoch_losses.append((self.cur_epochs,
                                   {k: float(v) / max(n, 1) for k, v in sums.items()}))
 
+    def check_stop(self) -> None:
+        """With several ranks: once a signal reached any rank or the
+        launcher, every rank stops here, after the same finished step
+        (``SystemExit(128 + signum)``)."""
+        if self._signal_stop is not None:
+            signum = self._signal_stop.agreed()
+            if signum:
+                raise SystemExit(128 + signum)
+
     @torch.no_grad()
     def validate(self, save_ckpt: bool = True) -> Dict[str, float]:
-        """One pass over the val set; ``save_ckpt=False`` (``--test_only``)
+        """One pass over the val set: the mean over batches of each batch's
+        EPE, D1 and >1 px share; ``save_ckpt=False`` (``--test_only``)
         writes no checkpoint."""
         self.model.eval()
-        epes, d1s, t1s = [], [], []
+        sums = []
         for batch in self.val_loader:
-            db = to_device({k: batch[k] for k in ("left", "right", "disp")}, self.device)
+            db = to_device(parallel.shard_batch({k: batch[k] for k in ("left", "right", "disp")}),
+                           self.device)
+            if len(db["disp"]) == 0:   # a rank without a sample of this batch
+                sums.append(torch.zeros(4, device=self.device))
+                continue
             b = ingest_batch(db)
             disp = self.model.disparity(b["left"], b["right"])[0]["disp"]
-            gt = db["disp"]
-            epes.append(float(epe_metric(disp, gt)))
-            d1s.append(float(d1_metric(disp, gt)))
-            t1s.append(float(thres_metric(disp, gt, 1.0)))
-        res = {"epe": float(np.mean(epes)), "d1": float(np.mean(d1s)),
-               "thres1": float(np.mean(t1s))}
+            sums.append(disparity_sums(disp, db["disp"], 1.0))
+        per_batch = metrics_from_sums(parallel.all_sum(torch.stack(sums))).cpu().numpy()
+        res = {k: float(np.mean([float(m) for m in per_batch[:, i]]))
+               for i, k in enumerate(("epe", "d1", "thres1"))}
+        if not self.main_rank:
+            parallel.barrier()
+            return res
         logging.info("val: EPE %.4f  D1 %.4f  >1px %.4f", res["epe"], res["d1"], res["thres1"])
         self.writer.add_scalar("val/epe", res["epe"], self.cur_epochs)
         self.writer.add_scalar("val/d1", res["d1"], self.cur_epochs)
-        if not save_ckpt:
-            return res
-        if res["epe"] < self.best_epe:
-            self.best_epe = res["epe"]
-            self.ckpt.save("score_best_checkpoint", self.state, self.cur_epochs, score=res,
+        if save_ckpt:
+            if res["epe"] < self.best_epe:
+                self.best_epe = res["epe"]
+                self.ckpt.save("score_best_checkpoint", self.state, self.cur_epochs, score=res,
+                               best_score=self.best_epe)
+            self.ckpt.save("latest_checkpoint", self.state, self.cur_epochs, score=res,
                            best_score=self.best_epe)
-        self.ckpt.save("latest_checkpoint", self.state, self.cur_epochs, score=res,
-                       best_score=self.best_epe)
+        parallel.barrier()
         return res

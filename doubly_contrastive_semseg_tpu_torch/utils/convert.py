@@ -33,7 +33,8 @@ and ``bias`` → ``deform_conv.{weight,bias}``; ``SemRefine``'s ``bn0`` →
 ``hg{1,2,3}/convK`` → ``dres{2,3,4}.convK`` (``.0`` where a ReLU follows:
 ``conv1``, ``conv3``, ``conv4``), ``classifI_{0,1}`` → ``classifI.{0,2}``,
 each ``Conv3D``'s ``conv``, ``bn`` → ``0``, ``1``. The other 3-D
-aggregations and ``StereoDRNetRefinement`` keep JAX's names. A 3-D kernel
+aggregations and ``StereoDRNetRefinement`` keep JAX's names, and so do
+the legacy stereo feature extractors and heads (``_legacy_stereo``). A 3-D kernel
 (kD, kH, kW, I, O) → (O, I, kD, kH, kW); a 3-D transposed conv's (the
 hourglass's ``conv5``, ``conv6``, GCNet's ``trans1..5``) flipped kernel →
 torch's (I, O, kD, kH, kW). A tree of gradients maps like a tree of
@@ -88,19 +89,23 @@ def _conv_bn(path: Tuple[str, ...], conv: str, bn: str) -> str:
     return conv + ("." + _SEP[path[1]] if len(path) > 1 else "")
 
 
+def _aspp(path: Tuple[str, ...], aspp: str) -> str:
+    """A JAX ``ASPP``'s module → the port's ``deeplab.ASPP`` at ``aspp``."""
+    sub, rest = path[0], path[1:]
+    if sub == "conv1x1":
+        return _conv_bn(rest, f"{aspp}.convs.0.0", f"{aspp}.convs.0.1")
+    if sub.startswith("aspp_conv"):
+        i = int(sub[len("aspp_conv"):]) + 1
+        return _conv_bn(rest, f"{aspp}.convs.{i}.0", f"{aspp}.convs.{i}.1")
+    if sub == "image_pool":
+        return _conv_bn(rest, f"{aspp}.convs.4.1", f"{aspp}.convs.4.2")
+    return _conv_bn(rest, f"{aspp}.project.0", f"{aspp}.project.1")
+
+
 def _deeplab_head(path: Tuple[str, ...], v3plus: bool) -> str:
-    aspp = "classifier.aspp" if v3plus else "classifier.0"
     top, rest = path[0], path[1:]
     if top == "aspp":
-        sub, rest = rest[0], rest[1:]
-        if sub == "conv1x1":
-            return _conv_bn(rest, f"{aspp}.convs.0.0", f"{aspp}.convs.0.1")
-        if sub.startswith("aspp_conv"):
-            i = int(sub[len("aspp_conv"):]) + 1
-            return _conv_bn(rest, f"{aspp}.convs.{i}.0", f"{aspp}.convs.{i}.1")
-        if sub == "image_pool":
-            return _conv_bn(rest, f"{aspp}.convs.4.1", f"{aspp}.convs.4.2")
-        return _conv_bn(rest, f"{aspp}.project.0", f"{aspp}.project.1")
+        return _aspp(rest, "classifier.aspp" if v3plus else "classifier.0")
     if top == "project":
         return _conv_bn(rest, "classifier.project.0", "classifier.project.1")
     if top == "fuse":
@@ -259,11 +264,39 @@ def _psmnet_hg(path: Tuple[str, ...]) -> str:
             + f".{_HOURGLASS_ENCODERS[part]}")
 
 
+# a top-level module of each legacy stereo feature extractor and head that
+# holds a BN (models/stereo_features.py, models/legacy_segmentation.py)
+_LEGACY_STEREO_KEYS = frozenset(("down0", "firstconv0", "res0", "conv_start0", "out0_bn0",
+                                 "fpn0_bn", "ir0_0", "aspp", "pre_bn"))
+
+
+def _legacy_stereo(path: Tuple[str, ...], node: Mapping) -> str:
+    """A JAX legacy stereo module (``models/stereo_features.py``,
+    ``models/legacy_segmentation.py``) → the port's: JAX's path in torch
+    form, but an ``ASPP`` as ``_aspp``, an ``InvertedResidual`` ``irG_B`` as
+    ``_inverted_residual`` and the MobileNetV2 trunk's ``ConvBNReLU6``
+    (``conv_in``, ``stem``) as the ``conv_bn_relu6`` Sequential."""
+    out = []
+    for i, part in enumerate(path):
+        rest = path[i + 1:]
+        if part == "aspp":
+            return ".".join(out + [_aspp(rest, "aspp")])
+        if re.fullmatch(r"ir\d_\d+", part):
+            return ".".join(out + [part, _inverted_residual(rest, "expand" in node[part])])
+        if part in ("conv_in", "stem") and "ir0_0" in node:
+            return ".".join(out + [part, "0" if rest[0] == "conv" else "1"])
+        out.append(part)
+        node = node[part]
+    return ".".join(out)
+
+
 def _module_name(path: Tuple[str, ...], params: Mapping) -> str:
     """The port's dotted module name of the JAX module at ``path``; the
     family and the branches it takes are read off ``params`` (a params or a
     batch-stats tree: every test below names a module with a BN)."""
     top = path[0]
+    if _LEGACY_STEREO_KEYS & set(params):
+        return _legacy_stereo(path, params)
     if top in ("weather_clf", "projection"):
         return ".".join(path)
     if top == "net":
@@ -302,11 +335,13 @@ def _module_name(path: Tuple[str, ...], params: Mapping) -> str:
 
 def _is_transposed(path) -> bool:
     """ENet's transposed convs, the first conv of a ``deconv*`` step
-    (``Conv2x(deconv=True)``) of the hourglass's and ``SemRefine``'s
-    ladders, and ``SemRefine``'s bare ×2 deconvolutions."""
+    (``Conv2x(deconv=True)``) of the hourglass's, ``SemRefine``'s and
+    GANet's ladders and of the MobileNetV2 trunk's ``up1``, ``up2``,
+    ``SemRefine``'s bare ×2 deconvolutions and ``DeConv2D``'s ``deconv``."""
     return (path[-1] in ("ext_tconv", "transposed_conv", "deconv1", "deconv2", "deconv1_sem",
-                         "deconv2_sem")
-            or (path[-2:] == ("conv1", "conv") and path[-3].startswith("deconv")))
+                         "deconv2_sem", "deconv")
+            or (len(path) > 2 and path[-2:] == ("conv1", "conv")
+                and (path[-3].startswith("deconv") or path[-3] in ("up1", "up2"))))
 
 
 def _is_transposed_3d(path) -> bool:
@@ -352,8 +387,8 @@ def _is_deform_conv(params: Mapping, path) -> bool:
 
 def from_jax_variables(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
     """State dict for the port's ``DCSSModel``, ``DeepLabDCSS``,
-    ``ENetDCSS`` or ``StereoDCSS`` from the JAX model's ``params`` and
-    ``batch_stats`` trees."""
+    ``ENetDCSS``, ``StereoDCSS`` or a legacy stereo feature extractor or
+    head from the JAX model's ``params`` and ``batch_stats`` trees."""
     layout = params or batch_stats
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf, value in _walk(params):

@@ -52,3 +52,16 @@ class SummaryWriter:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class NullSummaryWriter:
+    """A ``SummaryWriter`` that writes nothing: the ranks other than 0."""
+
+    def init_wandb(self, project: Optional[str]) -> None:
+        pass
+
+    def add_scalar(self, tag: str, value, step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -4,14 +4,13 @@
 and ``to_json`` agrees on the shared keys, at the defaults, the paper's
 recipe (``scripts/train_weather.sh``), each ``--no_*`` flag, ``--test_only``
 and datasets that change ``num_classes`` and ``data_root``; every model name
-passes ``check_ported`` (the six WeatherNet backbones ported last are built
-through ``main``). The one
+passes ``parallel.check_devices`` (the six WeatherNet backbones ported last
+are built through ``main``). The one
 difference by design: the default ``data_root`` lies under the home
 directory in the port, where JAX names a fixed path; with ``--data_root``
-given they agree. The stereo routes pass ``check_ported``; runs that need a
-route the port does not have (``--num_devices`` above 1) raise
-``NotImplementedError`` naming its ``ROADMAP.md`` item, and the CLIs raise
-without a card unless ``--device cpu`` is given.
+given they agree. ``--num_devices 2`` is accepted on the CPU on every route
+and refused with ``ValueError`` where fewer cards are visible, and the CLIs
+raise without a card unless ``--device cpu`` is given.
 """
 
 import dataclasses
@@ -27,7 +26,8 @@ from doubly_contrastive_semseg_tpu_torch import config as port_config  # noqa: E
 from doubly_contrastive_semseg_tpu_torch import inference as port_inference  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch import main as port_main  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.config import (  # noqa: E402
-    MODELS, PORTED_MODELS, check_ported, is_stereo_run, parse_args)
+    MODELS, PORTED_MODELS, is_stereo_run, parse_args)
+from doubly_contrastive_semseg_tpu_torch.parallel import check_devices  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_ONLY = {"filelist_root", "device"}
@@ -112,16 +112,18 @@ NOT_PORTED = {
 
 @pytest.mark.parametrize("argv,stereo", list(NOT_PORTED.values()), ids=list(NOT_PORTED))
 def test_unported_routes_raise_naming_their_item(argv, stereo, tmp_path):
-    """The stereo routes (JAX ``main.py:35-38``) pass ``check_ported`` and
-    go to the stereo trainer; ``--num_devices 2`` still raises, naming item
-    6, on either route and before the run writes anything."""
+    """The stereo routes (JAX ``main.py:35-38``) go to the stereo trainer;
+    on either route ``--num_devices 2`` passes ``check_devices`` on the CPU
+    and, on ``cuda`` with fewer cards than ranks, ``main`` raises the
+    ``ValueError`` naming both counts before the run writes anything."""
     cfg = parse_args(argv)
     assert is_stereo_run(cfg) == stereo
-    if stereo:
-        check_ported(cfg)
     argv = argv if "--num_devices" in argv else [*argv, "--num_devices", "2"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
-        port_main.main([*argv, "--device", "cpu", "--run_root", str(tmp_path)])
+    check_devices(parse_args([*argv, "--device", "cpu"]))
+    n = max(2, torch.cuda.device_count() + 1)
+    argv = [a if a != "2" else str(n) for a in argv] + ["--batch_size", str(n)]
+    with pytest.raises(ValueError, match=f"--num_devices {n} needs {n} GPUs; {torch.cuda.device_count()} visible"):
+        port_main.main([*argv, "--run_root", str(tmp_path)])
     assert not os.listdir(tmp_path)
 
 
@@ -129,13 +131,13 @@ def test_unported_routes_raise_naming_their_item(argv, stereo, tmp_path):
                                    if m == "enet" or m.startswith("deeplabv3")])
 def test_check_ported_accepts_the_deeplab_family_and_enet(model):
     """Every DeepLab name of JAX's ``MODELS`` and ``enet`` pass
-    ``check_ported``, with ``--deeplab`` too for the DeepLab names, and
+    ``check_devices``, with ``--deeplab`` too for the DeepLab names, and
     ``--output_stride`` / ``--separable_conv`` reach the config."""
     argv = ["--model", model, "--output_stride", "8", "--separable_conv"]
     if model != "enet":
         argv.append("--deeplab")
     cfg = parse_args(argv)
-    check_ported(cfg)
+    check_devices(cfg)
     assert model in PORTED_MODELS and cfg.output_stride == 8 and cfg.separable_conv
 
 
@@ -147,13 +149,13 @@ BACKBONES = {"resnet18_single": "SingleScaleSwiftNet", "resnet18_hourglass": "Ho
 @pytest.mark.parametrize("model", list(BACKBONES))
 def test_weathernet_backbones_pass_check_ported_and_build(model, tmp_path):
     """The six WeatherNet backbones of ``ROADMAP.md`` §1 item 4 pass
-    ``check_ported``, and ``main --device cpu`` builds each (0 epochs: the
+    ``check_devices``, and ``main --device cpu`` builds each (0 epochs: the
     ``Trainer`` alone, its model, data and run directory)."""
     import logging
     import signal
 
     cfg = parse_args(["--model", model])
-    check_ported(cfg)
+    check_devices(cfg)
     assert model in PORTED_MODELS
     root = logging.getLogger()
     handlers, level = list(root.handlers), root.level

@@ -110,3 +110,16 @@ def test_stereo_modules_import_without_jax(guarded, name):
     list and import with JAX refused."""
     assert f"{PACKAGE}.{name}" in MODULES
     assert guarded["result"][f"{PACKAGE}.{name}"] is None
+
+
+LAST_SLICE = ("models.stereo_features", "models.legacy_segmentation", "parallel",
+              "parallel.mesh", "parallel.collectives", "parallel.launch", "train.ranks",
+              "tools.check_parallel")
+
+
+@pytest.mark.parametrize("name", LAST_SLICE)
+def test_legacy_stereo_and_parallel_modules_import_without_jax(guarded, name):
+    """The legacy stereo modules and the ranks' modules are in the guarded
+    list and import with JAX refused."""
+    assert f"{PACKAGE}.{name}" in MODULES
+    assert guarded["result"][f"{PACKAGE}.{name}"] is None

@@ -61,6 +61,7 @@ from doubly_contrastive_semseg_tpu_torch.main import main as port_main  # noqa: 
 from doubly_contrastive_semseg_tpu_torch.metrics import disparity as pmetrics  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.models import build_stereo_model  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.models.blocks import to_channels_last  # noqa: E402
+from doubly_contrastive_semseg_tpu_torch.parallel import check_devices  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.train import (  # noqa: E402
     StereoTrainer, TrainState, build_stereo_optimizer, make_stereo_train_step, set_lr)
 from doubly_contrastive_semseg_tpu_torch.utils import from_jax_variables  # noqa: E402
@@ -386,6 +387,15 @@ def test_main_trains_the_synthetic_disparity_route(tmp_path):
 
 
 def test_num_devices_still_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
-        port_main(SYNTHETIC + ["--run_root", str(tmp_path), "--num_devices", "2"])
+    """``--num_devices`` above the visible cards raises on ``cuda`` before
+    the run writes anything; two ranks are accepted on the CPU, and a train
+    batch smaller than the ranks is refused."""
+    n = max(2, torch.cuda.device_count() + 1)
+    argv = [a for a in SYNTHETIC if a not in ("--device", "cpu")]
+    with pytest.raises(ValueError, match=f"needs {n} GPUs; {torch.cuda.device_count()} visible"):
+        port_main(argv + ["--run_root", str(tmp_path), "--num_devices", str(n),
+                          "--batch_size", str(n)])
     assert not os.listdir(tmp_path)
+    check_devices(parse_args(SYNTHETIC + ["--num_devices", "2", "--batch_size", "2"]))
+    with pytest.raises(ValueError, match="a train batch of 1 samples leaves a rank without one"):
+        check_devices(parse_args(SYNTHETIC + ["--num_devices", "2", "--batch_size", "1"]))

@@ -35,6 +35,7 @@ from doubly_contrastive_semseg_tpu.models import stereo as jstereo  # noqa: E402
 from doubly_contrastive_semseg_tpu.models import stereo_extras as jextras  # noqa: E402
 from doubly_contrastive_semseg_tpu.models.serving import (  # noqa: E402
     make_stereo_serving_fn as jax_stereo_serving)
+from doubly_contrastive_semseg_tpu.ops import deform_conv as jdeform  # noqa: E402
 from doubly_contrastive_semseg_tpu.ops.input_pipeline import s2d_pack  # noqa: E402
 from doubly_contrastive_semseg_tpu.utils.torch_convert import (  # noqa: E402
     convert_reference_refinement, jax_to_py)
@@ -43,6 +44,7 @@ from doubly_contrastive_semseg_tpu_torch import (  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch import inference as port_inference  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.data.png import read_png, write_png  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.models import stereo, stereo_extras  # noqa: E402
+from doubly_contrastive_semseg_tpu_torch.ops.deform_conv import DeformConv2d  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.utils import from_jax_variables  # noqa: E402
 from test_torch_deeplab import assert_same_tree, close, few_threads  # noqa: E402,F401
 from test_torch_stereo_3d import check_training_grads, port_state  # noqa: E402
@@ -110,9 +112,11 @@ def test_warp_refinement_matches_jax(rng, kind, train):
 def test_stereodrnet_refinement_gradients_match_jax(rng):
     """StereoDRNet's refinement in training, backward from one cotangent:
     output, input and parameter gradients and running stats at 1e-4 of
-    max|·| (``check_training_grads``). The hourglass is held only forward:
-    its gradients differ from JAX's by up to 3.9e-2 of max|g| on these
-    inputs, as its training outputs hold 1e-2 (its deformable samples)."""
+    max|·| (``check_training_grads``). The hourglass's whole backward
+    differs from JAX's by up to 3.9e-2 of max|g| on these inputs, as its
+    training outputs hold 1e-2 (JAX's one-pass BN variance moving its
+    deformable samples); it is held block by block in
+    ``test_hourglass_refinement_block_gradients_match_jax``."""
     disp = rng.uniform(0, 7, (B, H // 4, W // 4)).astype(np.float32)
     left, right = (rng.uniform(0, 255, (B, H, W, 3)).astype(np.float32) for _ in range(2))
     jmod = jextras.make_refinement("stereodrnet")
@@ -120,6 +124,53 @@ def test_stereodrnet_refinement_gradients_match_jax(rng):
     params, stats = random_variables(jmod, jin[0], rng, *jin[1:], jargs=(False,))
     check_training_grads(rng, jmod, stereo_extras.make_refinement("stereodrnet"), "refinement",
                          [disp, left, right], params, stats, raw=(1, 2))
+
+
+class DeformTrainArg(jdeform.DeformConv2d):
+    """JAX ``DeformConv2d`` called as ``check_training_grads`` calls a
+    block, with a ``train`` flag it does not read."""
+
+    def __call__(self, x, train):
+        return super().__call__(x)
+
+
+# HourglassRefinement's blocks: (name in the module, JAX block, port block,
+# input shapes NHWC); the deformable convs in their gather form
+HOURGLASS_BLOCKS = {
+    "conv_start": (lambda: DeformTrainArg(32), lambda: DeformConv2d(32, 32),
+                   [(B, 16, 32, 32)]),
+    "conv1a": (lambda: jextras._BasicConv(48, stride=2),
+               lambda: stereo_extras.BasicConv(32, 48, stride=2), [(B, 16, 32, 32)]),
+    "conv3a": (lambda: DeformTrainArg(96, stride=2), lambda: DeformConv2d(64, 96, stride=2),
+               [(B, 8, 16, 64)]),
+    "conv4a": (lambda: DeformTrainArg(128, stride=2), lambda: DeformConv2d(96, 128, stride=2),
+               [(B, 4, 8, 96)]),
+    "deconv4a": (lambda: jextras._Conv2x(96, deconv=True),
+                 lambda: stereo_extras.Conv2x(128, 96, deconv=True),
+                 [(B, 2, 4, 128), (B, 4, 8, 96)]),
+    "conv3b": (lambda: jextras._Conv2x(96, mdconv=True),
+               lambda: stereo_extras.Conv2x(64, 96, mdconv=True),
+               [(B, 8, 16, 64), (B, 4, 8, 96)]),
+}
+
+
+@pytest.mark.parametrize("name", list(HOURGLASS_BLOCKS))
+def test_hourglass_refinement_block_gradients_match_jax(rng, name):
+    """The hourglass refinement's backward block by block: its three
+    deformable convs (gather form, offset convs scaled by
+    ``OFFSET_SCALE``), a stride-2 encoder of the a-pass and the two kinds
+    of ``Conv2x`` step of the U-net ladder (a ×2 deconv with its skip, a
+    b-pass stride-2 step with its skip), each fed the same NHWC inputs:
+    output, input and parameter gradients and running stats at 1e-4 of
+    max|·| (``check_training_grads``, JAX un-jitted)."""
+    make_jax, make_port, shapes = HOURGLASS_BLOCKS[name]
+    jmod = make_jax()
+    xs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    params, stats = random_variables(jmod, jnp.asarray(xs[0]), rng,
+                                     *[jnp.asarray(x) for x in xs[1:]], jargs=(False,))
+    if name in OFFSET_SCALE:
+        params = calm_offsets({name: params})[name]
+    check_training_grads(rng, jmod, make_port(), name, xs, params, stats, jit=False)
 
 
 def test_upsample_disp_matches_jax_call_site(rng):
