@@ -232,7 +232,7 @@ and ``DisparityFeature``, at 384×1248 × 1 bf16 (ms a forward, peak memory;
 random offsets on GANet's deformable convs), then at f32 96×96 on the card
 against the CPU; no kernel lies on this path and none launches.
 
-Last, ``--num_devices`` (phase 26): the one H100 is one card and NCCL
+Then ``--num_devices`` (phase 26): the one H100 is one card and NCCL
 refuses two ranks on one device, so two ranks share ``cuda:0`` over gloo,
 through the same step and collectives the trainers use
 (``tools/check_parallel.py``): the flagship step at f64, f32 and bf16 and
@@ -243,6 +243,18 @@ gathered anchor rows take K3 and K4 on each rank where each rank's 4104
 would not, and the eval and stereo validation sums (K2 counted on each
 rank); one NCCL world-size-1 run of ``main``'s rank entry; ``main
 --num_devices 2`` on this one-card machine refused with ``ValueError``.
+
+Last, the ``('data', 'model')`` grid (phase 27): the width-split eval
+forward and serving of ``DCSSModel`` (resnet18) at 2048×1024 × 1 on (1, 2)
+and (1, 4) grids of ranks sharing ``cuda:0`` over gloo, through
+``tools/check_parallel.py``'s ``spatial`` case, at f32 and bf16 on (1, 2)
+and at f32 on (1, 4) (``SPATIAL_DTYPES``: the script's time), against one
+process: K2 and K1 first held to their plain versions at every window the
+grids give them, then the f32 maps and weather logits within 1e-4 of max,
+the weather logits equal on every rank, the bf16 labels on decided pixels
+and the bf16 grid's distance from the f32 forward against one process's,
+K2 ×3 a forward and K2 ×3 + K1 ×1 a serve on every rank on its dtype's
+route, ms a forward and peak memory of each rank and of one process.
 
 Any failure raises and exits non-zero; so does a machine without CUDA or a
 directory without the package. The last line is ``{"ok": true, "device":
@@ -255,6 +267,7 @@ import contextlib
 import copy
 import json
 import os
+import pathlib
 import subprocess
 import sys
 import tempfile
@@ -295,6 +308,11 @@ STEREO_DISP_BAR = 1.0                   # 22a, 22c: mean |Δdisparity| bar, pixe
 LEGACY_HW, LEGACY_SMALL = (384, 1248), 96
 # phase 26: the dense-contrast step on two ranks (216 · 19 · 2 = 8208 rows)
 PARALLEL_DENSE = (216, 96)
+# phase 27: the width-split forward at the full frame, one image, and its grids
+SPATIAL = (1, 1024, 2048)
+SPATIAL_GRIDS = ((1, 2), (1, 4))
+SPATIAL_DTYPES = {(1, 2): ("float32", "bfloat16"), (1, 4): ("float32",)}   # the script's time
+SPATIAL_ITERS = 3
 # phase 23: the 3-D aggregations and warp-error refinements at the same widths
 KITTI_GCNET = (384, 1280)               # 23b: KITTI's 1242x375 padded to GCNet's multiple of 64
 STEREO_3D_PAIRS = (("stereonet", "hourglass"), ("psmnet_basic", "stereodrnet"),
@@ -306,7 +324,14 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+_T0 = time.perf_counter()
+
+
 def log(*args) -> None:
+    """Prints ``args``; a phase's header line ("== ...") with the seconds
+    since the script started in front, so the phases' times can be read."""
+    if args and str(args[0]).startswith("== "):
+        args = (f"[{time.perf_counter() - _T0:.1f} s]",) + args
     print(*args, flush=True)
 
 
@@ -978,13 +1003,22 @@ HOST_LIBRARIES = ("PIL", "cv2", "scipy", "sklearn", "matplotlib", "visdom", "gra
 def host_libraries() -> dict:
     """Which of ``HOST_LIBRARIES`` import here, each tried in a fresh
     interpreter of its own so that none of them loads into this one (or
-    into another's try): {name: True, or the error's last line}."""
+    into another's try, all at once): {name: True, or the error's last
+    line}."""
+    procs = {m: subprocess.Popen([sys.executable, "-c", f"import {m}"], stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True) for m in HOST_LIBRARIES}
     ok = {}
-    for m in HOST_LIBRARIES:
-        out = subprocess.run([sys.executable, "-c", f"import {m}"], capture_output=True,
-                             text=True, timeout=120)
-        err = out.stderr.strip().splitlines()
-        ok[m] = True if out.returncode == 0 else (err[-1][:160] if err else f"exit {out.returncode}")
+    try:
+        for m, proc in procs.items():
+            _, stderr = proc.communicate(timeout=120)
+            err = stderr.strip().splitlines()
+            ok[m] = True if proc.returncode == 0 else (err[-1][:160] if err
+                                                       else f"exit {proc.returncode}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return ok
 
 
@@ -4350,16 +4384,12 @@ def legacy_stereo_phase(torch, dev, card, reset, read):
     return out
 
 
-def parallel_phase(torch, dev, card, reset, read):
-    """26. ``--num_devices`` on the one card (module docstring). Returns the
-    launches and differences for the kernels line."""
-    from doubly_contrastive_semseg_tpu_torch import main as port_main
-    from doubly_contrastive_semseg_tpu_torch.parallel import free_init_method
+def parallel_jobs(torch):
+    """26's two-rank jobs on ``cuda:0`` over gloo against one process, and
+    their checks: {"differences", "dense_launches", "eval_launches"}."""
     from doubly_contrastive_semseg_tpu_torch.tools import check_parallel as cp
 
-    t26 = time.perf_counter()
     b, s = PARALLEL_DENSE
-    log(f"== 26. --num_devices: two ranks on cuda:0 over gloo against one process; {card}")
     jobs = [("flagship", {"dtype": "float64"}), ("flagship", {"dtype": "float32"}),
             ("flagship", {"dtype": "bfloat16"}),
             ("flagship", {"dtype": "float32", "b": b, "s": s}),
@@ -4414,9 +4444,20 @@ def parallel_phase(torch, dev, card, reset, read):
     out["dense_launches"] = {"rank 0": dense_m["launches"],
                              "all ranks": dense_m["launches_all_ranks"]}
     out["eval_launches"] = {"rank 0": ev_m["launches"], "all ranks": ev_m["launches_all_ranks"]}
+    return out
 
+
+def parallel_phase(torch, dev, card, reset, read):
+    """26. ``--num_devices`` on the one card (module docstring). Returns the
+    launches and differences for the kernels line. The NCCL world-size-1
+    run of ``main`` is a subprocess that runs beside the two-rank jobs: it
+    has only to finish and write its checkpoint."""
+    from doubly_contrastive_semseg_tpu_torch import main as port_main
+
+    t26 = time.perf_counter()
+    log(f"== 26. --num_devices: two ranks on cuda:0 over gloo against one process; {card}")
     # one NCCL rank of world size 1 through main's rank entry
-    with tempfile.TemporaryDirectory() as root:
+    with tempfile.TemporaryDirectory() as root, tempfile.TemporaryDirectory() as logs:
         argv = ["--dataset", "synthetic", "--debug", "--synthetic_hw", "64x128",
                 "--train_semantic", "--criterion", "supcon_pixelcontrast_focal", "--epochs",
                 "1", "--batch_size", "2", "--val_batch_size", "2", "--num_workers", "2",
@@ -4426,13 +4467,23 @@ def parallel_phase(torch, dev, card, reset, read):
                 f"run_rank(0, 1, free_init_method(), None, {argv!r}); "
                 "import torch.distributed as d; print('nccl world-size-1 ok')")
         t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                           timeout=300, env={**os.environ, "PYTHONPATH": os.getcwd()})
-        log(f"  NCCL world-size-1 main run: exit {r.returncode} in "
-            f"{time.perf_counter() - t0:.1f} s; "
-            f"{[ln for ln in r.stdout.splitlines() if ' took ' in ln or 'world-size' in ln]}")
-        check(r.returncode == 0 and "nccl world-size-1 ok" in r.stdout,
-              f"26: the NCCL rank failed:\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+        paths = [os.path.join(logs, name) for name in ("stdout", "stderr")]
+        with open(paths[0], "w") as fo, open(paths[1], "w") as fe:
+            proc = subprocess.Popen([sys.executable, "-c", code], stdout=fo, stderr=fe,
+                                    env={**os.environ, "PYTHONPATH": os.getcwd()})
+        try:
+            out = parallel_jobs(torch)
+            proc.wait(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+            stdout, stderr = (pathlib.Path(path).read_text() for path in paths)
+            log(f"  NCCL world-size-1 main run (beside the jobs): exit {proc.returncode} in "
+                f"{time.perf_counter() - t0:.1f} s; "
+                f"{[ln for ln in stdout.splitlines() if ' took ' in ln or 'world-size' in ln]}")
+            check(proc.returncode == 0 and "nccl world-size-1 ok" in stdout,
+                  f"26: the NCCL rank failed:\n{stdout[-2000:]}\n{stderr[-2000:]}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         check(len(run_files(root)) > 0 and any(f.endswith("latest_checkpoint")
                                                for f in run_files(root)),
               "26: the NCCL rank wrote no checkpoint")
@@ -4446,6 +4497,134 @@ def parallel_phase(torch, dev, card, reset, read):
     out["seconds"] = time.perf_counter() - t26
     log(f"  {card}: phase 26 took {out['seconds']:.1f} s")
     return out
+
+
+def spatial_windows(h: int, w: int, m: int):
+    """The (B, H, W) inputs K2 and K1 take on the ranks of a (1, m) grid at
+    an h × w image: each rank's window of each pyramid level
+    (``stem_reads``) and of the decoded features (``seghead_reads``)."""
+    from doubly_contrastive_semseg_tpu_torch.ops.input_pipeline import pyramid_hw
+    from doubly_contrastive_semseg_tpu_torch.ops.seghead import seghead_reads
+    from doubly_contrastive_semseg_tpu_torch.ops.stem import stem_output_hw, stem_reads
+    from doubly_contrastive_semseg_tpu_torch.parallel.spatial import ranges
+
+    k2 = set()
+    for lv in range(3):
+        hh, ww = pyramid_hw(h, w, lv)
+        for a, b in ranges(stem_output_hw(hh, ww)[1], m):
+            lo, hi = stem_reads(ww)(a, b)
+            k2.add((1, hh, hi - lo))
+    k1 = set()
+    for a, b in ranges(w, m):
+        lo, hi = seghead_reads(w // 4)(a, b)
+        k1.add((1, h // 4, hi - lo))
+    return sorted(k2), sorted(k1)
+
+
+def spatial_phase(torch, dev, card):
+    """27. The width-split forward and serving (module docstring). Returns
+    the per-rank launches and the measurements for the kernels line."""
+    from doubly_contrastive_semseg_tpu_torch.tools import check_parallel as cp
+    from doubly_contrastive_semseg_tpu_torch.tools import profile_seghead, profile_stem
+
+    t27 = time.perf_counter()
+    b, h, w = SPATIAL
+    log(f"== 27. width-split DCSSModel (resnet18) forward and serving at {w}x{h} x {b}: grids "
+        f"{SPATIAL_GRIDS} of ranks on cuda:0 over gloo ({SPATIAL_DTYPES}) against one "
+        f"process; {card}")
+    gen = torch.Generator().manual_seed(27)
+    shapes = {}
+    for _, m in SPATIAL_GRIDS:
+        k2, k1 = spatial_windows(h, w, m)
+        shapes[m] = {"k2": k2, "k1": k1}
+    k2_all = sorted({s for v in shapes.values() for s in v["k2"]})
+    k1_all = sorted({s for v in shapes.values() for s in v["k1"]})
+    log(f"  K2 at the grids' level windows {k2_all} vs stem_pool_reference:")
+    profile_stem.check_routes(gen, dev, log, shapes=k2_all)
+    log(f"  K1 at the grids' feature windows {k1_all} vs seghead_reference:")
+    profile_seghead.check_routes(gen, dev, log, shapes=k1_all)
+
+    jobs = [("spatial", {"b": b, "h": h, "w": w, "dtype": dt, "time_iters": SPATIAL_ITERS})
+            for dt in ("float32", "bfloat16")]
+    out = {"window_shapes": shapes, "grids": {}}
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False     # as in the ranks: no tuning of each width
+    try:
+        t0 = time.perf_counter()
+        one = cp.run_one(jobs, "cuda")
+        log(f"  one process: {time.perf_counter() - t0:.1f} s")
+        for shape in SPATIAL_GRIDS:
+            t0 = time.perf_counter()
+            pick = [i for i, (_, kw) in enumerate(jobs) if kw["dtype"] in SPATIAL_DTYPES[shape]]
+            sub = [jobs[i] for i in pick]      # f32 first: spatial_results reads it as one[0]
+            many = cp.run_grids([(shape, sub)], shape[0] * shape[1], "cuda", "gloo")[0]
+            log(f"  grid {shape}: {time.perf_counter() - t0:.1f} s (spawn included)")
+            out["grids"][str(shape)] = spatial_results(sub, many, [one[i] for i in pick], shape)
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    keys = ("ms", "peak_gb", "forward_k2", "serving_k2", "serving_k1")
+    out["one_process"] = {kw["dtype"]: {k: o["per_rank"][k][0] for k in keys}
+                          for (_, kw), o in zip(jobs, one)}
+    log(f"  one process: {json.dumps(out['one_process'])}")
+    out["seconds"] = time.perf_counter() - t27
+    log(f"  {card}: phase 27 took {out['seconds']:.1f} s")
+    return out
+
+
+def spatial_results(jobs, many, one, shape):
+    """27's checks of one grid's results against one process's: f32 maps
+    and weather logits within 1e-4 of max; bf16 labels on decided pixels,
+    and the bf16 grid no further from the f32 forward than twice one
+    process's bf16 forward (``jobs[0]`` is f32); K2 ×3 in the forward and ×3
+    + K1 ×1 in serving on every rank and in one process, each on its
+    dtype's route."""
+    from doubly_contrastive_semseg_tpu_torch.tools import check_parallel as cp
+
+    n = shape[0] * shape[1]
+    res = {}
+    for (_, kw), m, o in zip(jobs, many, one):
+        dt = kw["dtype"]
+        d = cp.differences(m, o)
+        r = m["per_rank"]
+        route = "tc" if dt == "bfloat16" else "cc"
+        want = {"forward_k2": 3, f"forward_k2_{route}": 3, "forward_k1": 0, "serving_k2": 3,
+                f"serving_k2_{route}": 3, "serving_k1": 1, f"serving_k1_{route}": 1}
+        for who, counts in (("each rank", r), ("one process", o["per_rank"])):
+            for k, v in want.items():
+                check(counts[k] == [v] * len(counts[k]),
+                      f"27: {shape} {dt}: {who}: {k} {counts[k]}, expected {v} each")
+        log(f"  {shape} {dt}: {json.dumps({k: round(v, 9) for k, v in d.items()})}; "
+            f"feature columns by rank {r['feat_cols']}; ms a forward by rank "
+            f"{[round(x, 2) for x in r['ms']]} (one process {o['per_rank']['ms'][0]:.2f}); "
+            f"peak GB by rank {[round(x, 3) for x in r['peak_gb']]} (one process "
+            f"{o['per_rank']['peak_gb'][0]:.3f}); weather spread {r['weather_spread']}; "
+            f"all-reduces a forward by rank {r['forward_all_reduce']} "
+            f"({[round(x, 3) for x in r['forward_all_reduce_mb']]} MB)")
+        check(r["weather_spread"] == [0.0] * n, f"27: {shape} {dt}: weather logits differ "
+              f"between the ranks of a group: {r['weather_spread']}")
+        if dt == "float32":
+            bad = {k: d[k] for k in ("seg", "seg_beforeup", "fine_feat", "weather_logits")
+                   if not d[k] <= 1e-4}
+            check(not bad, f"27: {shape} f32 grid vs one process beyond 1e-4 of max: {bad}")
+            check(d["labels_decided"] == 1.0, f"27: {shape} f32 labels on decided pixels: {d}")
+        else:
+            # decided: the top-two gap above twice the largest seg_beforeup
+            # difference anywhere, so the share is low where that maximum is
+            check(d["labels_decided"] >= 0.999 and d["decided"] >= 0.5,
+                  f"27: {shape} bf16 labels (bar 0.999 on decided pixels, at least half of "
+                  f"them decided): {d}")
+            # the grid's bf16 rounding against one process's: each from the f32 forward
+            f32 = one[0]
+            grid_off, one_off = cp.differences(m, f32), cp.differences(o, f32)
+            log(f"  {shape} bf16 against one process's f32 forward: grid "
+                f"{json.dumps({k: round(v, 6) for k, v in grid_off.items()})}; one process "
+                f"{json.dumps({k: round(v, 6) for k, v in one_off.items()})}")
+            check(grid_off["seg_beforeup"] <= 2 * one_off["seg_beforeup"],
+                  f"27: {shape} the bf16 grid is further from the f32 forward than twice one "
+                  f"process's bf16 forward: {grid_off} vs {one_off}")
+            d["vs_f32"] = {"grid": grid_off, "one_process": one_off}
+        res[dt] = {"differences": d, "per_rank": r}
+    return res
 
 
 def main() -> int:
@@ -4828,6 +5007,21 @@ def main() -> int:
             "rows_gathered": PARALLEL_DENSE[0] * 19 * 2,
             "rank_0": p26["dense_launches"]["rank 0"][name],
             "all_ranks": p26["dense_launches"]["all ranks"][name]}
+
+    # 27. the width-split forward and serving over grids of ranks
+    p27 = spatial_phase(torch, dev, card)
+    for i, what, keys in ((0, "spatial_forward", ("forward_k2", "forward_k2_tc", "forward_k2_cc")),
+                          (0, "spatial_serving", ("serving_k2", "serving_k2_tc", "serving_k2_cc")),
+                          (1, "spatial_serving", ("serving_k1", "serving_k1_tc", "serving_k1_cc"))):
+        kernels[i][what] = {
+            grid: {dt: {"launches_by_rank": {k: r["per_rank"][k] for k in keys},
+                        "ms_a_forward_by_rank": r["per_rank"]["ms"],
+                        "all_reduces_a_forward_by_rank": r["per_rank"]["forward_all_reduce"]}
+                   for dt, r in g.items()}
+            for grid, g in p27["grids"].items()}
+        kernels[i][what]["one_process"] = p27["one_process"]
+        kernels[i][what]["window_shapes"] = {m: v["k2" if i == 0 else "k1"]
+                                             for m, v in p27["window_shapes"].items()}
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

@@ -22,10 +22,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.blend import blend_kernel_supported, fused_upsample_blend
-from ..ops.interpolate import adaptive_avg_pool, resize_bilinear
+from ..ops.interpolate import adaptive_avg_pool, resize_bilinear, resize_bilinear_cols
 from ..ops.seghead import fold_bn
 from ..parallel import active as parallel_active
-from ..parallel import rand_rows, sync_batch_norm, world
+from ..parallel import data_rows, rand_rows, sync_batch_norm
+from ..parallel.spatial import conv_reads, windowed
 
 # torch BatchNorm momentum of the reference (network/utils.py:36)
 TORCH_BN_MOMENTUM = 0.1
@@ -129,6 +130,34 @@ def to_channels_last(module: nn.Module) -> nn.Module:
     return module
 
 
+def conv_window(conv: nn.Conv2d, x: torch.Tensor, lo: int, hi: int, a: int,
+                b: int) -> torch.Tensor:
+    """Output columns [a, b) of ``conv`` (dilation 1) on the whole map, from
+    ``x`` (B, C, H, w), the map's input columns [lo, hi) (``spatial.
+    conv_reads``): zero columns pad the window only past the map's edges."""
+    k, s, p = conv.kernel_size[1], conv.stride[1], conv.padding[1]
+    x = F.pad(x, (lo - (s * a - p), s * (b - 1) - p + k - hi))
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv2d(x.contiguous(memory_format=torch.channels_last), conv.weight.to(x.dtype),
+                    bias, conv.stride, (conv.padding[0], 0), 1, conv.groups)
+
+
+def conv_cols(conv: nn.Conv2d, x: torch.Tensor, width: int):
+    """``conv`` on a width-split map: from this rank's columns ``x`` (B, C,
+    H, w) of a map ``width`` wide, (this rank's output columns, the output
+    width), as ``parallel/spatial.py`` says."""
+    if tuple(conv.dilation) != (1, 1):
+        raise NotImplementedError("conv_cols: a dilated conv has no width-split route")
+    k, s, p = conv.kernel_size[1], conv.stride[1], conv.padding[1]
+    w_out = (width + 2 * p - k) // s + 1
+    y = windowed(x, width, w_out, conv_reads(k, s, p, width),
+                 lambda xw, lo, hi, a, b: conv_window(conv, xw, lo, hi, a, b), dim=3)
+    if y is None:
+        h_out = (x.shape[2] + 2 * conv.padding[0] - conv.kernel_size[0]) // conv.stride[0] + 1
+        y = x.new_zeros((x.shape[0], conv.out_channels, h_out, 0))
+    return y, w_out
+
+
 def conv_kxk(in_features: int, features: int, k: int = 3, stride: int = 1,
              bias: bool = False, dilation: int = 1) -> Conv2d:
     """k×k conv with torch ``padding=dilation·(k//2)``."""
@@ -179,7 +208,7 @@ class Dropout(nn.Module):
     def blocks(b: int) -> int:
         """The blocks of the batch's samples in ``b`` rows (two views: 2)
         with several ranks, whose masks are the global batch's rows."""
-        return b // world().rows[world().rank] if parallel_active() else 1
+        return b // data_rows() if parallel_active() else 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -224,6 +253,11 @@ class BNReluConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(torch.relu(self.norm(x)))
+
+    def forward_cols(self, x: torch.Tensor, width: int):
+        """The unit on a width-split map (``conv_cols``): (this rank's
+        output columns, the output width)."""
+        return conv_cols(self.conv, torch.relu(self.norm(x)), width)
 
     def nhwc_logits(self, x: torch.Tensor) -> torch.Tensor:
         """The head's output as (B, h, w, features) float32: the seg
@@ -275,6 +309,18 @@ class UpsampleBlend(nn.Module):
         hh, ww = skip.shape[-2:]
         x = resize_bilinear(x.permute(0, 2, 3, 1), (hh, ww)).permute(0, 3, 1, 2)
         return self.blend_conv(x + skip)
+
+
+    def forward_cols(self, x: torch.Tensor, x_width: int, skip: torch.Tensor,
+                     width: int) -> torch.Tensor:
+        """The step on width-split maps: this rank's columns of ``x``, a map
+        ``x_width`` wide, resized to the skip's global size
+        (``resize_bilinear_cols``), added to this rank's columns of the
+        skip, a map ``width`` wide, and blended with a 1-column halo. The
+        fused route has no width-split form: the caller refuses
+        ``fuse_inference`` (``PyramidResNet.check_split``)."""
+        up = resize_bilinear_cols(x.permute(0, 2, 3, 1), x_width, (skip.shape[2], width))
+        return self.blend_conv.forward_cols(up.permute(0, 3, 1, 2) + skip, width)[0]
 
 
 class Upsample(nn.Module):

@@ -31,9 +31,9 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.input_pipeline import build_pyramid
-from ..ops.stem import fused_stem_pool
-from .blocks import Conv2d, UpsampleBlend, batch_norm, conv_kxk, max_pool_3x3_s2
+from ..ops.input_pipeline import build_pyramid, build_pyramid_cols
+from ..ops.stem import fused_stem_pool, fused_stem_pool_cols
+from .blocks import Conv2d, UpsampleBlend, batch_norm, conv_cols, conv_kxk, max_pool_3x3_s2
 
 NUM_FEATURES = 128   # decoder width
 PYRAMID_LEVELS = 3
@@ -73,6 +73,16 @@ class BasicBlock(nn.Module):
         out = self._run(self._part2, self._run(self._part1, x))
         residual = x if self.downsample is None else self.downsample(x)
         return torch.relu(out + residual)
+
+    def forward_cols(self, x: torch.Tensor, width: int):
+        """The block in eval on a width-split map (``blocks.conv_cols``):
+        (this rank's output columns, the output width)."""
+        out, w_out = conv_cols(self.conv1, x, width)
+        out, _ = conv_cols(self.conv2, torch.relu(self.bn1(out)), w_out)
+        residual = x
+        if self.downsample is not None:
+            residual = self.downsample[1](conv_cols(self.downsample[0], x, width)[0])
+        return torch.relu(self.bn2(out) + residual), w_out
 
 
 class PyramidResNet(nn.Module):
@@ -128,6 +138,44 @@ class PyramidResNet(nn.Module):
                 skips[idx + j].append(getattr(self, f"upsample_bottlenecks{j + 1}")(x))
         return pyramid_decode(self, skips)
 
+    def check_split(self) -> None:
+        """Raises for what the width-split forward does not run: training
+        (JAX shows no width-split training) and ``fuse_inference`` on a
+        blend (K5's fused step has no width-split route). It never falls
+        back to another route."""
+        if self.training:
+            raise ValueError("PyramidResNet: the width-split forward runs in eval mode only "
+                             "(JAX shows no width-split training)")
+        for m in self.modules():
+            if isinstance(m, UpsampleBlend) and m.fuse_inference:
+                raise ValueError("PyramidResNet: fuse_inference (K5, ops/blend.py) has no "
+                                 "width-split route (ROADMAP.md: K5 under the model axis)")
+
+    def forward_split(self, image: torch.Tensor, width: int):
+        """The eval forward on a width-split image (``parallel/spatial.py``):
+        this rank's columns of an NHWC or planar image ``width`` wide →
+        (this rank's columns of the decoded features, their width, {"skips_0":
+        this rank's columns of the coarsest skip}). Every layer takes the
+        halo it reads: the pyramid's bicubic taps, K2's window (three
+        launches, one a level; the plain stem without ``fuse_stem``), the
+        trunk's 3×3 and strided 1×1 convs, the blends' resize and 3×3. The
+        1×1 bottlenecks, eval BN and the skip sums are local: equal global
+        widths give equal ranges."""
+        self.check_split()
+        skips = pyramid_skips()
+        for idx, (level, w) in enumerate(build_pyramid_cols(image, width, PYRAMID_LEVELS,
+                                                            self.dtype)):
+            scale, shift = getattr(self, f"bn1_{idx}").folded()
+            x, w = fused_stem_pool_cols(level, w, self.conv1.weight, scale, shift,
+                                        plain=not self.fuse_stem)
+            x = x.permute(0, 3, 1, 2)
+            for j in range(4):
+                for block in getattr(self, f"layer{j + 1}"):
+                    x, w = block.forward_cols(x, w)
+                skips[idx + j].append(conv_cols(getattr(self, f"upsample_bottlenecks{j + 1}"),
+                                                x, w))
+        return pyramid_decode_cols(self, skips)
+
 
 def add_pyramid_decoder(module: nn.Module, skip_widths: Sequence[int] = ()) -> None:
     """The pyramid harness's decoder on ``module``: a 1×1 bottleneck to 128
@@ -162,6 +210,21 @@ def pyramid_decode(module: nn.Module, skips: Dict[int, list]):
             skip_sum = skip_sum + s
         x = getattr(module, f"upsample_blends{i}")(x, skip_sum)
     return x, additional
+
+
+def pyramid_decode_cols(module: nn.Module, skips: Dict[int, list]):
+    """``pyramid_decode`` on width-split maps: ``skips`` holds (this rank's
+    columns, global width) pairs; (decoded features' columns, their width,
+    {"skips_0": the coarsest skip's columns})."""
+    skips_r = [skips[lvl] for lvl in reversed(range(len(skips)))]
+    x, w = skips_r[0][0]
+    additional = {"skips_0": x}
+    for i in range(1, len(skips)):
+        skip_sum, ws = skips_r[i][0]
+        for s, _ in skips_r[i][1:]:
+            skip_sum = skip_sum + s
+        x, w = getattr(module, f"upsample_blends{i}").forward_cols(x, w, skip_sum, ws), ws
+    return x, w, additional
 
 
 def resnet18_pyramid(**kw) -> PyramidResNet:

@@ -22,8 +22,9 @@ from typing import Callable
 import torch
 
 from ..ops.input_pipeline import image_hw, upsample4x_argmax
-from ..ops.interpolate import resize_bilinear
-from ..ops.seghead import fused_seghead_upsample_argmax
+from ..ops.interpolate import resize_bilinear, resize_bilinear_cols
+from ..ops.seghead import fused_seghead_cols, fused_seghead_upsample_argmax
+from ..parallel.spatial import split_active
 from .stereo import StereoDCSS
 from .weathernet import DCSSModel, check_device
 
@@ -47,6 +48,25 @@ def _labels(head, feat: torch.Tensor, size, use_fused_head: bool = True) -> torc
     return resize_bilinear(seg_beforeup, size).argmax(-1).to(torch.int8)
 
 
+def _labels_split(head, feat: torch.Tensor, width: int, size,
+                  use_fused_head: bool = True) -> torch.Tensor:
+    """``_labels`` on width-split features: from this rank's columns of the
+    (B, 128, h, ``width``) features, this rank's columns of the label map.
+    The branch is chosen on the global sizes (the height is not split): K1
+    on a window of the features (``fused_seghead_cols``), else the ×4 or
+    the image-size resize of the logits (``resize_bilinear_cols``) and its
+    argmax."""
+    h = feat.shape[2]
+    if use_fused_head and h >= 10 and (4 * h, 4 * width) == tuple(size):
+        return fused_seghead_cols(
+            feat.permute(0, 2, 3, 1), width, head.norm.weight, head.norm.bias,
+            head.norm.running_mean, head.norm.running_var, head.conv.weight, head.conv.bias,
+            eps=head.norm.eps)
+    logits = head.forward_cols(feat, width)[0].permute(0, 2, 3, 1).float()
+    out = (4 * h, 4 * width) if 4 * h == size[0] else tuple(size)
+    return resize_bilinear_cols(logits, width, out).argmax(-1).to(torch.int8)
+
+
 def make_serving_fn(model: torch.nn.Module, device="cuda",
                     use_fused_head: bool = True) -> Callable:
     """Returns ``serve(image) -> (B, H, W) int8`` for a model of
@@ -55,7 +75,14 @@ def make_serving_fn(model: torch.nn.Module, device="cuda",
     to_nhwc``). ``use_fused_head`` is JAX's ``use_pallas_head``: for a
     ``DCSSModel`` the fused head serves images that are 4× the features and
     have at least 10 feature rows. Runs on the card unless ``device`` asks
-    for the CPU."""
+    for the CPU.
+
+    On a model axis of more than one rank (``parallel/spatial.py``) a
+    ``DCSSModel`` is served width-split: ``image`` is this rank's columns
+    of the image (NHWC or planar) and ``serve`` returns this rank's columns
+    of the label map; K2 runs on each rank's window of each level and K1 on
+    its window of the features, and no rank holds more of the image than
+    its columns and their halo."""
     device = check_device(device, "make_serving_fn")
     model.eval()
     if not isinstance(model, DCSSModel):
@@ -72,6 +99,9 @@ def make_serving_fn(model: torch.nn.Module, device="cuda",
     @torch.no_grad()
     def serve(image) -> torch.Tensor:
         x = torch.as_tensor(image, device=device)
+        if split_active():
+            size, feat, wf, _ = model.net.features_split(x)
+            return _labels_split(head, feat, wf, size, use_fused_head)
         feat, _ = model.net.feature_extractor(x)   # (B, 128, h, w)
         return _labels(head, feat, image_hw(x), use_fused_head)
 

@@ -14,11 +14,12 @@ import torch
 import torch.nn as nn
 
 from ..ops.input_pipeline import image_hw
-from ..ops.interpolate import resize_bilinear
+from ..ops.interpolate import resize_bilinear, resize_bilinear_cols
+from ..parallel.spatial import global_width, spatial_mean, split_active
 from .blocks import BNReluConv, init_weights
 from .efficientnet_pyramid import PyramidEfficientNet
 from .mobilenetv2_pyramid import PyramidMobileNetV2
-from .resnet_pyramid import resnet18_pyramid, resnet34_pyramid
+from .resnet_pyramid import PyramidResNet, resnet18_pyramid, resnet34_pyramid
 from .resnet_pyramid_back import resnet18_pyramid_back
 from .swiftnet_single import BACKBONES as SINGLE_SCALE
 from .swiftnet_single import RGBDSwiftNet
@@ -42,7 +43,11 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
 def two_view_pool(fine_feat: torch.Tensor) -> torch.Tensor:
     """(2B, h, w, D) → (B, 2, D): each view's global average pool, the
     projection head's input (reference ``utils/loss.py:114-120``)."""
-    pooled = fine_feat.mean(dim=(1, 2))
+    return two_views(fine_feat.mean(dim=(1, 2)))
+
+
+def two_views(pooled: torch.Tensor) -> torch.Tensor:
+    """(2B, D) pooled features of the two-view concat → (B, 2, D)."""
     bsz = pooled.shape[0] // 2
     return torch.stack([pooled[:bsz], pooled[bsz:]], dim=1)
 
@@ -57,7 +62,10 @@ class WeatherClassifier(nn.Module):
         self.fc = nn.Linear(in_features, weather_num)
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
-        x = feats.mean(dim=(1, 2))
+        return self.classify(feats.mean(dim=(1, 2)))
+
+    def classify(self, x: torch.Tensor) -> torch.Tensor:
+        """The linear layer on (B, C) pooled features."""
         return nn.functional.linear(x, self.fc.weight.to(x.dtype),
                                     self.fc.bias.to(x.dtype)).float()
 
@@ -109,7 +117,10 @@ class WeatherNet(nn.Module):
         """With ``return_supcon_feature`` the batch is the two-view concat
         (2B, H, W, 3) and only the first view (``fine_feat0``) feeds the seg
         head (reference ``weathernet.py:76-85``). ``depth`` reaches the RGB-D
-        backbone only (zeros when not given, as in JAX)."""
+        backbone only (zeros when not given, as in JAX). On a model axis of
+        more than one rank, ``forward_split``."""
+        if split_active():
+            return self.forward_split(image, return_supcon_feature)[0]
         if isinstance(self.feature_extractor, RGBDSwiftNet):
             feat, additional = self.feature_extractor(image, depth)
         else:
@@ -123,6 +134,39 @@ class WeatherNet(nn.Module):
             "fine_feat0": nhwc(feat0),
             "skips_0": nhwc(additional["skips_0"]),
         }
+
+    def features_split(self, image: torch.Tensor):
+        """The backbone on a width-split image: ((H, W) of the whole image,
+        this rank's columns of the (B, 128, h, w) features, w, the
+        backbone's ``additional`` of this rank's columns). Raises, before
+        any collective, for a backbone other than the pyramid ResNets and
+        for what ``PyramidResNet.check_split`` refuses."""
+        fe = self.feature_extractor
+        if type(fe) is not PyramidResNet:
+            raise NotImplementedError(
+                f"WeatherNet: the width-split forward of {type(fe).__name__} is not ported "
+                "(ROADMAP.md: the other model families under the model axis)")
+        fe.check_split()
+        h, w_local = image_hw(image)
+        width = global_width(w_local, image.device)
+        return ((h, width),) + fe.forward_split(image, width)
+
+    def forward_split(self, image: torch.Tensor, return_supcon_feature: bool = False):
+        """The eval forward on a width-split image (``parallel/spatial.py``,
+        the JAX mesh's ``P(None, None, "model", None)``): this rank's
+        columns of an NHWC or planar image → (the outputs, each map this
+        rank's columns of it, ``seg`` of the whole image's size; the
+        feature map's width). Raises as ``features_split`` does."""
+        size, feat, wf, additional = self.features_split(image)
+        feat0 = feat[:feat.shape[0] // 2] if return_supcon_feature else feat
+        seg_beforeup = self.segmentation.forward_cols(feat0, wf)[0].permute(0, 2, 3, 1).float()
+        return {
+            "seg": resize_bilinear_cols(seg_beforeup, wf, size),
+            "seg_beforeup": seg_beforeup,
+            "fine_feat": nhwc(feat),
+            "fine_feat0": nhwc(feat0),
+            "skips_0": nhwc(additional["skips_0"]),
+        }, wf
 
 
 class DCSSModel(nn.Module):
@@ -148,13 +192,28 @@ class DCSSModel(nn.Module):
         (2B, H, W, 3); ``supcon_proj`` is the (B, 2, 128) projection of the
         globally pooled features of both views (reference
         ``utils/loss.py:114-120``). ``depth``: the RGB-D backbone's."""
+        if return_supcon_feature and self.projection is None:
+            raise ValueError("DCSSModel: return_supcon_feature needs a model "
+                             "built with projection=True")
+        if split_active():
+            return self.forward_split(image, return_supcon_feature)
         out = self.net(image, return_supcon_feature, depth)
         out["weather_logits"] = self.weather_clf(out["fine_feat0"])
         if return_supcon_feature:
-            if self.projection is None:
-                raise ValueError("DCSSModel: return_supcon_feature needs a model "
-                                 "built with projection=True")
             out["supcon_proj"] = self.projection(two_view_pool(out["fine_feat"]))
+        return out
+
+    def forward_split(self, image: torch.Tensor,
+                      return_supcon_feature: bool = False) -> Dict[str, torch.Tensor]:
+        """``WeatherNet.forward_split``'s outputs, plus ``weather_logits`` and
+        ``supcon_proj`` from the global pools of the features
+        (``spatial_mean`` over the model group), the same on every rank of
+        it. ``forward`` takes this route on a model axis of more than one
+        rank."""
+        out, wf = self.net.forward_split(image, return_supcon_feature)
+        out["weather_logits"] = self.weather_clf.classify(spatial_mean(out["fine_feat0"], wf))
+        if return_supcon_feature:
+            out["supcon_proj"] = self.projection(two_views(spatial_mean(out["fine_feat"], wf)))
         return out
 
 

@@ -20,7 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .interpolate import downsample_bicubic_direct
+from ..parallel.spatial import windowed
+from .interpolate import bicubic_reads, downsample_bicubic_direct
 
 # ImageNet-scale normalisation constants of the reference backbone
 # (network/weathernet.py:37-38)
@@ -94,6 +95,41 @@ def build_pyramid(image: torch.Tensor, levels: int, dtype: torch.dtype = torch.f
             x = F.pad(xn.permute(0, 3, 1, 2), (0, pad_w, 0, pad_h),
                       mode="replicate").permute(0, 2, 3, 1)
         out.append(downsample_bicubic_direct(x, lv)[:, :hh, :ww].contiguous().to(dtype))
+    return out
+
+
+def build_pyramid_cols(image: torch.Tensor, width: int, levels: int,
+                       dtype: torch.dtype = torch.float32, mean=IMAGENET_MEAN,
+                       std=IMAGENET_STD) -> List[Tuple[torch.Tensor, int]]:
+    """``build_pyramid`` of a width-split image: from this rank's columns of
+    an NHWC or planar image ``width`` wide (``parallel/spatial.py``), each
+    level's (this rank's columns, the level's width). The level sizes are
+    the whole image's ``pyramid_hw``; each level reads the normalised
+    columns ``bicubic_reads`` gives, and the replicate pad of an extra
+    column (or row) is made only where the window meets the image's right
+    (or bottom) edge. Equal to the whole image's levels column for column."""
+    if is_s2d_image(image):
+        raise ValueError("build_pyramid_cols: a width-split image is NHWC or planar pixels; "
+                         "the columns of s2d cells are not the image's")
+    xn = normalize(image, mean, std)
+    h = xn.shape[1]
+    out = []
+    for lv in range(levels):
+        hh, ww = pyramid_hw(h, width, lv)
+        f = 1 << lv
+
+        def level_cols(xw, lo, hi, a, b, lv=lv, hh=hh, ww=ww, f=f):
+            pad_h = max(0, (hh << lv) - h)
+            pad_w = max(0, (ww << lv) - width) if hi == width else 0
+            if pad_h or pad_w:
+                xw = F.pad(xw.permute(0, 3, 1, 2), (0, pad_w, 0, pad_h),
+                           mode="replicate").permute(0, 2, 3, 1)
+            y = downsample_bicubic_direct(xw, lv)
+            return y[:, :hh, a - lo // f:b - lo // f].contiguous().to(dtype)
+
+        reads = (lambda a, b: (a, b)) if lv == 0 else bicubic_reads(lv, width)
+        y = windowed(xn, width, ww, reads, level_cols, dim=2)
+        out.append((xn.new_zeros((xn.shape[0], hh, 0, 3), dtype=dtype) if y is None else y, ww))
     return out
 
 

@@ -30,6 +30,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from ..parallel.spatial import windowed
 from . import _build
 from .input_pipeline import upsample4x_argmax
 
@@ -148,6 +149,38 @@ def fused_seghead_upsample_argmax(feat, bn_scale, bn_bias, bn_mean, bn_var,
 fused_seghead_upsample_argmax.launches = 0
 fused_seghead_upsample_argmax.tc_launches = 0
 fused_seghead_upsample_argmax.cc_launches = 0
+
+
+def seghead_reads(width: int):
+    """(A, B) → [lo, hi): the feature window whose ×4 labels, through K1
+    unchanged, are those of the whole width-``width`` map at label columns
+    [A, B). Label column X = 4c + r blends feature columns c − 1, c (r < 2)
+    or c, c + 1 (r ≥ 2), which K1 clamps at its borders: one feature column
+    of halo on each inner side, lo ≤ (A − 2)/4 and hi ≥ (B + 2)/4, clipped
+    to the map, whose own clamp then holds. Label columns map to feature
+    columns 4 to 1, so the window's labels are cropped from 4·lo on."""
+    def reads(a: int, b: int):
+        return max(0, (a - 2) // 4), min(width, -(-(b + 2) // 4))
+    return reads
+
+
+def fused_seghead_cols(feat: torch.Tensor, width: int, bn_scale, bn_bias, bn_mean, bn_var,
+                       conv_weight, conv_bias, eps: float = 1e-5) -> torch.Tensor:
+    """``fused_seghead_upsample_argmax`` of width-split features: from this
+    rank's columns ``feat`` (B, h, w, 128) of a map ``width`` wide, this
+    rank's columns of the (B, 4h, 4·width) int8 label map (``parallel/
+    spatial.py``'s rule), K1 run on the window ``seghead_reads`` gives."""
+    params = (bn_scale, bn_bias, bn_mean, bn_var, conv_weight, conv_bias)
+
+    def labels(fw, lo, hi, a, b):
+        out = fused_seghead_upsample_argmax(fw.contiguous(), *params, eps=eps)
+        return out[:, :, a - 4 * lo:b - 4 * lo].contiguous()
+
+    y = windowed(feat, width, 4 * width, seghead_reads(width), labels, dim=2)
+    if y is None:
+        return torch.empty((feat.shape[0], 4 * feat.shape[1], 0), dtype=torch.int8,
+                           device=feat.device)
+    return y
 
 
 def seghead_tensor_cores(feat, bn_scale, bn_bias, bn_mean, bn_var, conv_weight, conv_bias,

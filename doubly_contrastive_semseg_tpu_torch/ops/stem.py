@@ -22,6 +22,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..parallel.spatial import windowed
 from . import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -102,6 +103,40 @@ def fused_stem_pool(x: torch.Tensor, weight: torch.Tensor,
 fused_stem_pool.launches = 0
 fused_stem_pool.tc_launches = 0
 fused_stem_pool.cc_launches = 0
+
+
+def stem_reads(width: int):
+    """(a, b) → [lo, hi): the input window of pooled columns [a, b) of a
+    width-``width`` level through K2 unchanged. Pooled column q reads input
+    columns 4q − 5 … 4q + 5 (conv 7×7/s2/p3, then pool 3×3/s2/p1), so [a, b)
+    reads 4a − 5 … 4b + 1. lo = 4a − 8, a multiple of 4, keeps the stride
+    phase of the whole level (local pooled column q − lo/4 is global q)
+    and leaves the kernel's own borders to the two pooled columns before a;
+    the window is then widened to a multiple of 8 columns, K2's aligned
+    route, where the level allows. A window at a global edge takes no halo
+    there, so the kernel's padding is the level's."""
+    def reads(a: int, b: int):
+        lo = max(0, 4 * a - 8)
+        return lo, min(width, lo + -(-(4 * b + 2 - lo) // 8) * 8)
+    return reads
+
+
+def fused_stem_pool_cols(x: torch.Tensor, width: int, weight: torch.Tensor,
+                         scale: torch.Tensor, shift: torch.Tensor, plain: bool = False):
+    """``fused_stem_pool`` of a width-split level: from this rank's columns
+    ``x`` (B, H, w, 3) of a level ``width`` wide, (this rank's pooled
+    columns (B, Hp, wp, 64), the pooled width ``stem_output_hw``'s). K2
+    runs unchanged on the window ``stem_reads`` gives and its output is
+    cropped to this rank's columns; ``plain`` takes ``stem_pool_reference``
+    on any device (the unfused stem)."""
+    hp, w_out = stem_output_hw(x.shape[1], width)
+    fn = stem_pool_reference if plain else fused_stem_pool
+
+    def pooled(xw, lo, hi, a, b):
+        return fn(xw.contiguous(), weight, scale, shift)[:, :, a - lo // 4:b - lo // 4]
+
+    y = windowed(x, width, w_out, stem_reads(width), pooled, dim=2)
+    return (x.new_zeros((x.shape[0], hp, 0, 64)) if y is None else y), w_out
 
 
 def stem_pool_tensor_cores(x: torch.Tensor, weight: torch.Tensor,

@@ -30,13 +30,17 @@ import torch.nn as nn
 from .mesh import active, global_rows, row_index, world
 
 
-def all_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over the ranks (no gradient); ``t`` with one rank. A
-    tensor on the CPU goes over the CPU group."""
+def all_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``group`` (one axis's,
+    ``World.group``; every rank by default), no gradient; ``t`` with one
+    rank. A tensor on the CPU summed over every rank goes over the CPU
+    group."""
     if not active():
         return t
     out = t.detach().clone()
-    dist.all_reduce(out, group=None if out.is_cuda else world().control)
+    if group is None and not out.is_cuda:
+        group = world().control
+    dist.all_reduce(out, group=group)
     return out
 
 

@@ -8,9 +8,10 @@ finished step and rank 0 writes the rescue checkpoint).
 
 from __future__ import annotations
 
+import math
 import signal
 import socket
-from typing import Callable, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.multiprocessing as mp
@@ -21,18 +22,21 @@ STOP_SIGNALS = (signal.SIGTERM, signal.SIGINT)
 GRACE_S = 5.0
 
 
-def check_devices(cfg) -> None:
+def check_devices(cfg, shape: Optional[Sequence[int]] = None) -> None:
     """``ValueError`` for a ``--num_devices`` N > 1 the run cannot have:
     fewer visible GPUs than N on ``cuda`` (JAX's ``make_mesh`` would take
     the devices it finds; the port refuses rather than run on fewer), or,
-    in training, a train batch of fewer than N samples."""
-    n = cfg.num_devices or 1
+    in training, a train batch of fewer than N samples. ``shape``, a
+    ``('data', 'model')`` grid (d, m) of ``make_mesh``, counts d·m ranks,
+    of which the batch is split over the d of the data axis."""
+    n = math.prod(shape) if shape else (cfg.num_devices or 1)
     if n <= 1:
         return
     if cfg.device == "cuda" and torch.cuda.device_count() < n:
         raise ValueError(f"--num_devices {n} needs {n} GPUs; {torch.cuda.device_count()} "
                          "visible")
-    if not cfg.test_only and cfg.batch_size < n:
+    d = shape[0] if shape else n
+    if not cfg.test_only and cfg.batch_size < d:
         raise ValueError(f"--num_devices {n}: a train batch of {cfg.batch_size} samples leaves "
                          "a rank without one")
 

@@ -21,15 +21,21 @@ gloo on the CPU; ``backend="gloo"`` on the card lets several ranks share one
 device). Every collective the port issues is an all-reduce, a broadcast or a
 barrier, the ones gloo offers on CUDA tensors. A second, gloo group on the
 CPU (``World.control``) carries the flags and names the ranks agree on
-without touching the card. JAX's ``('data', 'model')`` mesh with
-width-sharded activations is reached by no entry point and has no
-counterpart here.
+without touching the card.
+
+``make_mesh(..., axes=("data", "model"), shape=(d, m))`` lays the ranks
+out as JAX's ``('data', 'model')`` mesh: rank r sits at (r // m, r % m),
+the batch is split over ``data`` only (every rank of a ``model`` group, a
+row of the grid, holds the same samples), and each row splits the width of
+its activations (``spatial.py``). ``World.groups`` holds the process group
+of each axis that contains this rank (``None``: the whole world).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,15 +45,37 @@ import torch.distributed as dist
 @dataclasses.dataclass
 class World:
     """The process's place among the ranks: ``rank`` of ``size``, its
-    ``device``, the CPU ``control`` group, ``rows`` (each rank's samples of
-    the batch ``shard_batch`` last split) and ``stop`` (the launcher's
-    shared signal number, 0 until a signal)."""
+    ``device``, the CPU ``control`` group, ``rows`` (each data index's
+    samples of the batch ``shard_batch`` last split), ``stop`` (the
+    launcher's shared signal number, 0 until a signal), and the grid:
+    ``axes``, their ``shape``, this rank's ``coords`` and the process group
+    of each axis that holds it (``groups``; ``None`` is the whole world)."""
     rank: int = 0
     size: int = 1
     device: torch.device = torch.device("cpu")
     control: Optional[object] = None
     rows: Sequence[int] = ()
     stop: Optional[object] = None
+    axes: Tuple[str, ...] = ("data",)
+    shape: Optional[Tuple[int, ...]] = None    # None: (size,), one data axis
+    coords: Optional[Tuple[int, ...]] = None   # None: (rank,)
+    groups: Dict[str, object] = dataclasses.field(default_factory=dict)
+
+    def axis_size(self, axis: str) -> int:
+        """The ranks along ``axis`` (1 for an axis the grid does not have)."""
+        if axis not in self.axes:
+            return 1
+        return self.shape[self.axes.index(axis)] if self.shape is not None else self.size
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis`` (0 if the grid lacks it)."""
+        if axis not in self.axes:
+            return 0
+        return self.coords[self.axes.index(axis)] if self.coords is not None else self.rank
+
+    def group(self, axis: str):
+        """The process group of this rank's ``axis`` (``None``: the world)."""
+        return self.groups.get(axis)
 
 
 _WORLD = World()
@@ -63,19 +91,50 @@ def active() -> bool:
 
 
 def make_mesh(rank: int, size: int, init_method: str, device: torch.device,
-              backend: Optional[str] = None, stop=None) -> World:
+              backend: Optional[str] = None, stop=None, axes: Sequence[str] = ("data",),
+              shape: Optional[Sequence[int]] = None) -> World:
     """Joins the ``size``-rank process group at ``init_method`` as ``rank``
     on ``device`` (``backend`` NCCL on a card, gloo on the CPU, unless
-    given) and makes it the process's ``world()``."""
+    given) and makes it the process's ``world()``. ``axes`` and ``shape``
+    (JAX ``make_mesh``'s; ``(size,)`` by default) lay the ranks out as a
+    grid, row-major: with ``("data", "model")`` and ``(d, m)`` rank r is at
+    (r // m, r % m), and every rank joins a group for each row (its
+    ``model`` group) and each column (its ``data`` group)."""
     global _WORLD
+    axes = tuple(axes)
+    shape = tuple(shape) if shape is not None else (size,)
+    if len(axes) != len(shape) or "data" not in axes or math.prod(shape) != size:
+        raise ValueError(f"make_mesh: axes {axes} of shape {shape} for {size} ranks")
     device = torch.device(device)
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=init_method, world_size=size, rank=rank)
     control = dist.new_group(backend="gloo") if backend != "gloo" else None
-    _WORLD = World(rank, size, device, control, (), stop)
+    coords = tuple(int(c) for c in np.unravel_index(rank, shape))
+    _WORLD = World(rank, size, device, control, (), stop, axes, shape, coords,
+                   _axis_groups(rank, shape, axes))
+    if axes == ("data",):
+        _WORLD.shape = _WORLD.coords = None
     return _WORLD
+
+
+def _axis_groups(rank: int, shape: Tuple[int, ...], axes: Tuple[str, ...]) -> Dict[str, object]:
+    """The group of each axis that holds ``rank``: the whole world (``None``)
+    for an axis that spans it, else one ``new_group`` a line of the grid
+    along that axis, every line made on every rank (``new_group`` is
+    collective) in the same order."""
+    ranks = np.arange(math.prod(shape)).reshape(shape)
+    out = {}
+    for i, axis in enumerate(axes):
+        if shape[i] == ranks.size:
+            out[axis] = None
+            continue
+        for line in np.moveaxis(ranks, i, -1).reshape(-1, shape[i]):
+            g = dist.new_group([int(r) for r in line])
+            if rank in line:
+                out[axis] = g
+    return out
 
 
 def leave() -> None:
@@ -84,6 +143,12 @@ def leave() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _WORLD = World()
+
+
+def data_rows() -> int:
+    """This rank's samples of the last split batch (``World.rows`` at its
+    data index)."""
+    return _WORLD.rows[_WORLD.axis_index("data")]
 
 
 def split_sizes(n: int, size: int) -> list:
@@ -98,7 +163,8 @@ def row_index(n_local: int, blocks: int = 1, device=None) -> torch.Tensor:
     consecutive rows a sample: local (block j, sample s, q) is global
     ``(j·B + offset + s)·per + q``."""
     w = _WORLD
-    b, off = w.rows[w.rank], sum(w.rows[:w.rank])
+    i = w.axis_index("data")
+    b, off = w.rows[i], sum(w.rows[:i])
     if b == 0:
         return torch.zeros(0, dtype=torch.long, device=device)
     per = n_local // (blocks * b)
@@ -114,8 +180,7 @@ def global_rows(n_local: int) -> int:
     """The rows across the ranks of a tensor with ``n_local`` on this one."""
     if not active():
         return n_local
-    w = _WORLD
-    return n_local * sum(w.rows) // w.rows[w.rank]
+    return n_local * sum(_WORLD.rows) // data_rows()
 
 
 def rand_rows(shape, generator: Optional[torch.Generator], device, dim: int = 0,
@@ -137,21 +202,22 @@ _SAMPLE_KEYS = ("label", "disp", "weather", "right", "left")
 
 def shard_batch(batch: Dict) -> Dict:
     """This rank's share of a host batch (numpy arrays, lists of names): B
-    samples split as ``split_sizes`` says, each array's rows of its samples
-    (both views of a two-view ``left`` of 2B rows), lists alike; ``world().
-    rows`` records the split. The batch as it is with one rank."""
+    samples split over the ``data`` axis as ``split_sizes`` says, each
+    array's rows of its samples (both views of a two-view ``left`` of 2B
+    rows), lists alike; ``world().rows`` records the split. The batch as it
+    is with one rank."""
     if not active():
         return batch
     w = _WORLD
     n = next(len(batch[k]) for k in _SAMPLE_KEYS if batch.get(k) is not None)
-    w.rows = tuple(split_sizes(n, w.size))
+    w.rows = tuple(split_sizes(n, w.axis_size("data")))
     out = {}
     for k, v in batch.items():
         rows = len(v) if isinstance(v, (list, tuple)) or np.ndim(v) > 0 else 0
         if rows == 0 or rows % n:
             out[k] = v
             continue
-        idx = row_index(w.rows[w.rank] * (rows // n), blocks=rows // n).numpy()
+        idx = row_index(data_rows() * (rows // n), blocks=rows // n).numpy()
         out[k] = [v[i] for i in idx] if isinstance(v, (list, tuple)) else np.asarray(v)[idx]
     return out
 
@@ -160,5 +226,4 @@ def local_share() -> float:
     """This rank's share of the last batch's samples (1.0 with one rank)."""
     if not active():
         return 1.0
-    w = _WORLD
-    return w.rows[w.rank] / sum(w.rows)
+    return data_rows() / sum(_WORLD.rows)

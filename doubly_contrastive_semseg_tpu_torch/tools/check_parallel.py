@@ -18,6 +18,12 @@ updated parameters hold the gradients to the same tolerance as the rest.
 runs every case on the CPU with gloo and prints the largest differences as
 one JSON line (on the card: ``--device cuda`` puts every rank on
 ``cuda:0`` over gloo, as ``chip_smoke.py`` does on its one card).
+
+The ``spatial`` case is the width-split eval forward and serving of a
+``DCSSModel`` on a ``('data', 'model')`` grid (``parallel/spatial.py``):
+the outputs gathered whole, the labels, each rank's K2 and K1 launches and
+the spread of ``weather_logits`` over a model group, against one process.
+``--spatial --ranks 4`` runs ``spatial_plan``'s grids instead of the steps.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ from .. import parallel
 from ..config import Config
 from ..data.loader import to_device
 from ..metrics.disparity import disparity_sums
-from ..models import build_model, build_stereo_model
+from ..models import build_model, build_stereo_model, make_serving_fn
+from ..parallel import spatial
 from ..train import (TrainState, build_optimizer, init_eval_accum, make_eval_step,
                      make_stereo_train_step, make_train_step)
 from ..train.trainer import keyed_generator
@@ -156,8 +163,135 @@ def stereo_eval_sums(device, b: int = 3, seed: int = 0) -> Dict:
     return {"sums": parallel.all_sum(sums).cpu()}
 
 
+SPATIAL_KEYS = ("seg", "seg_beforeup", "fine_feat", "skips_0")
+
+
+def spatial_image(b: int, h: int, w: int, seed: int = 0) -> np.ndarray:
+    return np.random.default_rng(seed).uniform(0, 255, (b, h, w, 3)).astype(np.float32)
+
+
+def _whole(t: torch.Tensor, width: Optional[int] = None, split: bool = True,
+           blocks: int = 1) -> torch.Tensor:
+    """The whole batch of this rank's samples ``t`` (``blocks`` blocks of
+    them: 2 for the two views): with ``split``, its columns of a map
+    ``width`` wide gathered over the model group; then gathered over the
+    data group (its samples' rows, zeros elsewhere, summed)."""
+    if split:
+        t = spatial.gather_width(t, width)
+    w = parallel.world()
+    if w.axis_size("data") == 1:
+        return t
+    idx = parallel.row_index(t.shape[0], blocks=blocks, device=t.device)
+    buf = t.new_zeros((parallel.global_rows(t.shape[0]),) + tuple(t.shape[1:]), dtype=torch.float64)
+    buf[idx] = t.double()
+    return parallel.all_sum(buf, w.group("data")).to(t.dtype)
+
+
+def _per_rank(values: Dict[str, float], device) -> Dict[str, List[float]]:
+    """Every rank's ``values``, a list by rank under each name (one
+    all-reduce)."""
+    w = parallel.world()
+    buf = torch.zeros((len(values), w.size), dtype=torch.float64, device=device)
+    buf[:, w.rank] = torch.tensor(list(values.values()), dtype=torch.float64)
+    return dict(zip(values, parallel.all_sum(buf).cpu().tolist()))
+
+
+def spatial_case(device, h: int = 128, w: int = 256, b: int = 1, dtype: str = "float32",
+                 seed: int = 0, state_path: Optional[str] = None, supcon: bool = False,
+                 time_iters: int = 0) -> Dict:
+    """The eval forward and the serving of a seeded ``DCSSModel`` (resnet18;
+    the ``state_dict`` at ``state_path`` instead, where given) on
+    ``spatial_image(b, h, w)``: on a grid each rank takes its samples
+    (``shard_batch``) and its columns (``shard_width``), and the outputs
+    come back whole (gathered over the model group, then the data group);
+    in one process, the outputs as they are. With ``supcon`` the model has
+    the projection head and the forward takes the two-view concat of
+    ``spatial_image(b, h, w, seed)`` and of ``seed + 1``
+    (``return_supcon_feature``; ``fine_feat0`` and ``supcon_proj`` too),
+    serving the first view. Also each rank's K2 and K1 launches in the
+    forward and in serving, its all-reduces and their MB in the forward,
+    the spread of ``weather_logits`` over each model group (0: equal on its
+    ranks), and with ``time_iters`` each rank's ms a forward and peak
+    memory."""
+    views = 2 if supcon else 1
+    cfg = Config(compute_dtype=dtype, **({"criterion": "supcon_pixelcontrast_focal"}
+                                         if supcon else {}))
+    model = build_model(cfg, device=device, seed=seed)
+    if state_path is not None:
+        model.load_state_dict(torch.load(state_path, map_location=device), strict=True)
+    image = np.concatenate([spatial_image(b, h, w, seed + v) for v in range(views)])
+    image = parallel.shard_batch({"left": image, "label": np.zeros(b)})["left"]
+    x = spatial.shard_width(torch.from_numpy(image)).to(device)
+    counts = []
+    with torch.no_grad():
+        counts.append(_route_counts())
+        out = model(x, return_supcon_feature=supcon)
+        counts.append(_route_counts())
+        labels = make_serving_fn(model, device)(x[:x.shape[0] // views])
+        counts.append(_route_counts())
+    per_rank = {f"{what}_{k}": counts[i + 1][k] - counts[i][k]
+                for i, what in enumerate(("forward", "serving")) for k in counts[0]}
+    for what in ("forward", "serving"):
+        per_rank[f"{what}_all_reduce_mb"] = per_rank.pop(f"{what}_all_reduce_bytes") / 1e6
+    wl = out["weather_logits"]
+    ms, peak = float("nan"), float("nan")
+    if time_iters:
+        ms, peak = _time_forward(model, x, time_iters)
+    wf = spatial.global_width(out["fine_feat"].shape[2], device)
+    widths = {"seg": w, "seg_beforeup": wf, "fine_feat": wf, "fine_feat0": wf, "skips_0": None}
+    one_view = ("seg", "seg_beforeup", "fine_feat0")   # the maps of the first view alone
+    res = {k: _whole(out[k], widths[k], blocks=1 if k in one_view else views).cpu()
+           for k in SPATIAL_KEYS + (("fine_feat0",) if supcon else ())}
+    res["labels"] = _whole(labels).cpu()
+    res["weather_logits"] = _whole(wl, split=False).cpu()
+    if supcon:
+        res["supcon_proj"] = _whole(out["supcon_proj"], split=False).cpu()
+    per_rank.update(weather_spread=_spread(wl), ms=ms, peak_gb=peak,
+                    supcon_spread=_spread(out["supcon_proj"]) if supcon else 0.0,
+                    feat_cols=out["fine_feat"].shape[2], skips_0_cols=out["skips_0"].shape[2])
+    res["per_rank"] = _per_rank(per_rank, device)
+    return res
+
+
+def _spread(t: torch.Tensor) -> float:
+    """The largest difference between this rank's ``t`` and any other rank's
+    of its model group (0: the same on every rank)."""
+    t = t.flatten(1)[:, None]
+    every = spatial.gather_width(t, spatial.grid()[0], dim=1)   # one column a rank
+    return float((every - t).abs().max()) if every.numel() else 0.0
+
+
+def _route_counts() -> Dict[str, int]:
+    """K2's and K1's launches in this process, in all and by route (tc:
+    tensor cores, bf16; cc: CUDA cores, f32), and the width split's
+    all-reduces and their bytes."""
+    from ..ops import seghead, stem
+
+    out = {"all_reduce": spatial.ALL_REDUCES["calls"],
+           "all_reduce_bytes": spatial.ALL_REDUCES["bytes"]}
+    for name, fn in (("k2", stem.fused_stem_pool), ("k1", seghead.fused_seghead_upsample_argmax)):
+        out.update({name: fn.launches, f"{name}_tc": fn.tc_launches, f"{name}_cc": fn.cc_launches})
+    return out
+
+
+def _time_forward(model, x, iters: int):
+    """(ms a forward over ``iters`` after one warm-up, peak device memory
+    in GB) on the card; the ranks' collectives keep them in step."""
+    import time
+
+    with torch.no_grad():
+        model(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model(x)
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters, torch.cuda.max_memory_allocated() / 1e9
+
+
 CASES = {"flagship": flagship_step, "stereo": stereo_step, "eval": eval_pass,
-         "stereo_eval": stereo_eval_sums}
+         "stereo_eval": stereo_eval_sums, "spatial": spatial_case}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -188,31 +322,46 @@ def _device(device: str, rank: int, backend: Optional[str]) -> torch.device:
     return torch.device("cuda", 0 if backend == "gloo" else rank)
 
 
-def _rank(rank: int, n: int, init_method: str, stop, jobs: Sequence, device: str, backend,
+def _rank(rank: int, n: int, init_method: str, stop, plan: Sequence, device: str, backend,
           out: str) -> None:
     dev = _device(device, rank, backend)
-    parallel.make_mesh(rank, n, init_method, dev, backend, stop)
-    try:
-        torch.set_num_threads(min(torch.get_num_threads(), 2))
-        if device == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-        res = [_run_job(case, kw, dev) for case, kw in jobs]
-        if rank == 0:
-            torch.save(res, out)
-    finally:
-        parallel.leave()
+    torch.set_num_threads(min(torch.get_num_threads(), 2))
+    if device == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    res, init = [], init_method
+    for i, (shape, jobs) in enumerate(plan):
+        grid = {} if shape is None else {"axes": ("data", "model"), "shape": shape}
+        parallel.make_mesh(rank, n, init, dev, backend, stop, **grid)
+        try:
+            res.append([_run_job(case, kw, dev) for case, kw in jobs])
+            if i + 1 < len(plan):   # the next grid's rendezvous, picked just before its use
+                init = parallel.broadcast_object(parallel.free_init_method() if rank == 0 else None)
+        finally:
+            parallel.leave()
+    if rank == 0:
+        torch.save(res, out)
+
+
+def run_grids(plan: Sequence[Tuple[Optional[Tuple[int, int]], Sequence[Tuple[str, Dict]]]],
+              n: int, device: str = "cpu", backend: Optional[str] = None) -> List[List[Dict]]:
+    """Each (shape, jobs) of ``plan`` run by ``n`` spawned ranks, one spawn
+    for all: the ranks laid out as a ``('data', 'model')`` grid of
+    ``shape`` (one ``data`` axis for ``None``), a process group a grid, and
+    each (case, keywords) of ``jobs`` run (on ``cuda`` with
+    ``backend="gloo"`` every rank on ``cuda:0``); rank 0's results, a list
+    a grid."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank0.pt")
+        parallel.spawn_ranks(_rank, n, ([(s, list(j)) for s, j in plan], device, backend, out))
+        return torch.load(out, weights_only=False)
 
 
 def run_ranks(jobs: Sequence[Tuple[str, Dict]], n: int = 2, device: str = "cpu",
               backend: Optional[str] = None) -> List[Dict]:
-    """Each (case, keywords) of ``jobs`` run by ``n`` spawned ranks, one
-    spawn for all (on ``cuda`` with ``backend="gloo"`` every rank on
-    ``cuda:0``); rank 0's results."""
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "rank0.pt")
-        parallel.spawn_ranks(_rank, n, (list(jobs), device, backend, out))
-        return torch.load(out, weights_only=False)
+    """Each (case, keywords) of ``jobs`` run by ``n`` spawned ranks along
+    one ``data`` axis, one spawn for all; rank 0's results."""
+    return run_grids([(None, jobs)], n, device, backend)[0]
 
 
 def run_one(jobs: Sequence[Tuple[str, Dict]], device: str = "cpu") -> List[Dict]:
@@ -244,6 +393,30 @@ def differences(many: Dict, one: Dict) -> Dict[str, float]:
         out["accum"] = max(max_rel(many["accum"], one["accum"]).values())
     if "sums" in one:
         out["sums"] = max(max_rel({"s": many["sums"]}, {"s": one["sums"]}).values())
+    if "per_rank" in one:
+        out.update(spatial_differences(many, one))
+    return out
+
+
+def spatial_differences(many: Dict, one: Dict) -> Dict[str, float]:
+    """A width-split ``spatial`` result against one process's: each map's,
+    ``weather_logits``' and (two views) ``supcon_proj``'s ``max_rel``, the
+    labels' agreement on all
+    pixels and on the decided ones (where one process's top-two gap of the
+    logits the labels come from exceeds twice the largest ``seg_beforeup``
+    difference), and the decided share."""
+    keys = [k for k in SPATIAL_KEYS + ("fine_feat0", "weather_logits", "supcon_proj") if k in one]
+    out = max_rel({k: many[k] for k in keys}, {k: one[k] for k in keys})
+    # the logits the labels are the argmax of: seg_beforeup resized to them
+    logits = torch.nn.functional.interpolate(
+        one["seg_beforeup"].permute(0, 3, 1, 2), size=tuple(one["labels"].shape[1:]),
+        mode="bilinear", align_corners=False)
+    top2 = logits.topk(2, dim=1).values
+    err = float((many["seg_beforeup"] - one["seg_beforeup"]).abs().max())
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * err
+    eq = many["labels"] == one["labels"]
+    out.update(labels=float(eq.double().mean()), labels_decided=float(eq[decided].double().mean()),
+               decided=float(decided.double().mean()))
     return out
 
 
@@ -255,16 +428,34 @@ JOBS = [("flagship", {"dtype": "float64"}), ("flagship", {"dtype": "float32"}),
         ("eval", {}), ("stereo_eval", {})]
 
 
+def spatial_plan(n: int) -> List[Tuple[Tuple[int, int], List[Tuple[str, Dict]]]]:
+    """The width-split cases on ``n`` ranks: a (1, n) grid at JAX's 128×256,
+    at 128×250 (an odd half width, which ``pyramid_hw`` pads) and on two
+    views, and for an even ``n`` ≥ 4 a (2, n/2) grid on a batch of 2, of
+    one view and of two."""
+    plan = [((1, n), [("spatial", {}), ("spatial", {"w": 250}), ("spatial", {"supcon": True})])]
+    if n >= 4 and n % 2 == 0:
+        plan.append(((2, n // 2), [("spatial", {"b": 2}), ("spatial", {"b": 2, "supcon": True})]))
+    return plan
+
+
 def main(argv=None) -> Dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--device", default="cpu", choices=["cpu", "cuda"])
     p.add_argument("--ranks", type=int, default=2)
+    p.add_argument("--spatial", action="store_true",
+                   help="the width-split forward and serving cases (spatial_plan) instead")
     args = p.parse_args(argv)
+    if args.device == "cuda":   # one process as the ranks: f32 convs without TF32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     backend = "gloo" if args.device == "cuda" else None
-    many = run_ranks(JOBS, args.ranks, args.device, backend)
-    one = run_one(JOBS, args.device)
-    res = [{"case": case, **kw, **differences(m, o)}
-           for (case, kw), m, o in zip(JOBS, many, one)]
+    plan = spatial_plan(args.ranks) if args.spatial else [(None, JOBS)]
+    res = []
+    for (shape, jobs), many in zip(plan, run_grids(plan, args.ranks, args.device, backend)):
+        one = run_one(jobs, args.device)
+        res += [{"case": case, "grid": shape, **kw, **differences(m, o)}
+                for (case, kw), m, o in zip(jobs, many, one)]
     print(json.dumps(res))
     return res
 

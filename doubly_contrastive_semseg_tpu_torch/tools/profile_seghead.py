@@ -90,15 +90,15 @@ def _agreement(call, a, route, what, log):
     return got, (got == ref).double().mean().item()
 
 
-def check_routes(gen, dev, log=print) -> float:
-    """Each route against ``seghead_reference`` at ``CHECK_SHAPES`` and with
+def check_routes(gen, dev, log=print, shapes=CHECK_SHAPES) -> float:
+    """Each route against ``seghead_reference`` at ``shapes`` and with
     all-negative logits; raises on a disagreement or a call that took the
     wrong route. Returns the tensor-core route's share of labels that differ
     at the headline shape (the kernel's output is a label, so this is its
     error)."""
     fn = seghead.fused_seghead_upsample_argmax
     headline_dis = 0.0
-    for b, h, w in CHECK_SHAPES:
+    for b, h, w in shapes:
         args = head_inputs(gen, dev, b, h, w)
         cases = (("f32 CUDA cores", torch.float32, fn, "cc_launches"),
                  ("bf16 tensor cores", torch.bfloat16, fn, "tc_launches"),

@@ -113,8 +113,8 @@ def test_stereo_modules_import_without_jax(guarded, name):
 
 
 LAST_SLICE = ("models.stereo_features", "models.legacy_segmentation", "parallel",
-              "parallel.mesh", "parallel.collectives", "parallel.launch", "train.ranks",
-              "tools.check_parallel")
+              "parallel.mesh", "parallel.collectives", "parallel.launch", "parallel.spatial",
+              "train.ranks", "tools.check_parallel")
 
 
 @pytest.mark.parametrize("name", LAST_SLICE)
