@@ -1,0 +1,8 @@
+"""The share of the traced serving window in which no operation ran on
+the card."""
+
+
+def read(rec):
+    if rec.kind != "serve" or rec.trace is None:
+        return None
+    return 100.0 * (1.0 - rec.trace.busy_s / rec.trace.window_s)
