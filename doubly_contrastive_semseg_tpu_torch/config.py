@@ -185,7 +185,7 @@ class Config:
     rescue_interval: int = 0
     # eval-only fused stem kernel (ops/stem.py); False runs conv→BN→ReLU→pool
     fuse_stem: bool = True
-    # a torch.profiler trace of the first epoch
+    # a torch.profiler trace of the first epoch, with the program's dcss.* spans and counts
     trace: bool = False
     # A/B parity mode: pixel-contrast anchors are the first raster indices,
     # and the host train transforms draw the reference's legacy np.random
@@ -379,7 +379,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--loader", type=str, default=d.loader, choices=["thread", "grain"])
     p.add_argument("--rescue_interval", type=int, default=d.rescue_interval)
     _add_bool_flag(p, "fuse_stem", True)
-    _add_bool_flag(p, "trace", False)
+    _add_bool_flag(p, "trace", False,
+                   "a torch.profiler trace of the first train epoch under "
+                   "<experiment_dir>/profile; it holds the program's dcss.* spans (input, stem, "
+                   "trunk, decoder, head, forward, loss, backward, optimizer, ...) and "
+                   "dcss.count.* counts (utils/profiling.py)")
     _add_bool_flag(p, "reference_rng", False)
     _add_bool_flag(p, "shuffle", True)
     p.add_argument("--synthetic_size", type=int, default=d.synthetic_size)

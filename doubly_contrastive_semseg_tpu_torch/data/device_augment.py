@@ -25,6 +25,7 @@ import torch
 
 from ..ops.edt import label_boundary_weights
 from ..parallel import rand_rows
+from ..utils.profiling import span
 
 MEAN_FILL = (73.15, 82.90, 72.3)
 MIN_SCALE, MAX_SCALE = 0.5, 2.0
@@ -142,7 +143,7 @@ def apply_augment(images: torch.Tensor, labels: torch.Tensor, weather: torch.Ten
     box), each (views, B) (``sample_crop_params``): ``left`` (2B or B,
     crop, crop, 3) float32, ``label`` (B, crop, crop) and
     ``label_distance_weight`` (B, crop, crop) from view 0, ``weather``
-    (B,)."""
+    (B,). The ``dcss.augment`` span."""
     x0, y0, box = params
 
     def one_view(v):
@@ -151,11 +152,12 @@ def apply_augment(images: torch.Tensor, labels: torch.Tensor, weather: torch.Ten
             im = gamma_night(im, weather)
         return im
 
-    lb0 = crop_labels(labels, x0[0], y0[0], box[0], crop)
-    out: Dict[str, torch.Tensor] = {"weather": weather}
-    out["left"] = torch.cat([one_view(0), one_view(1)], 0) if two_crop else one_view(0)
-    out["label"] = lb0
-    out["label_distance_weight"] = label_boundary_weights(lb0, num_classes)
+    with span("dcss.augment"):
+        lb0 = crop_labels(labels, x0[0], y0[0], box[0], crop)
+        out: Dict[str, torch.Tensor] = {"weather": weather}
+        out["left"] = torch.cat([one_view(0), one_view(1)], 0) if two_crop else one_view(0)
+        out["label"] = lb0
+        out["label_distance_weight"] = label_boundary_weights(lb0, num_classes)
     return out
 
 

@@ -27,6 +27,8 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import count, span
+
 ARRAY_KEYS = ("left", "right", "label", "weather", "label_distance_weight", "disp")
 META_KEYS = ("left_name", "frame_name", "target_size", "target_size_feats")
 
@@ -188,20 +190,28 @@ def to_device(batch: Dict, device, class_weight=None) -> Dict:
     trainer's ``_device_batch`` (``parallel/mesh.py::shard_batch`` at world
     size 1). Every array moves: to the card as a pinned-memory copy that does
     not block the host. List metadata (names, target sizes) stays on the host
-    as it is. ``class_weight`` (C,), when given, joins the batch as float32."""
+    as it is. ``class_weight`` (C,), when given, joins the batch as float32.
+    The ``dcss.to_device`` span; the count ``data.pinned_bytes``, the bytes
+    of host arrays that were not pinned yet and were pinned here."""
     device = torch.device(device)
     pin = device.type == "cuda"
     out: Dict = {}
-    for k, v in batch.items():
-        if v is None:
-            continue
-        if isinstance(v, (list, tuple)):
-            out[k] = v
-            continue
-        t = torch.as_tensor(np.asarray(v))
-        if pin:
-            t = t.pin_memory()
-        out[k] = t.to(device, non_blocking=pin)
-    if class_weight is not None:
-        out["class_weight"] = torch.as_tensor(class_weight, dtype=torch.float32).to(device)
+    pinned = 0
+    with span("dcss.to_device"):
+        for k, v in batch.items():
+            if v is None:
+                continue
+            if isinstance(v, (list, tuple)):
+                out[k] = v
+                continue
+            t = torch.as_tensor(np.asarray(v))
+            if pin:
+                p = t.pin_memory()      # ``t`` itself where it is pinned already
+                if p.data_ptr() != t.data_ptr():
+                    pinned += t.nbytes
+                t = p
+            out[k] = t.to(device, non_blocking=pin)
+        if class_weight is not None:
+            out["class_weight"] = torch.as_tensor(class_weight, dtype=torch.float32).to(device)
+        count("data.pinned_bytes", pinned)
     return out

@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..parallel import global_mean, global_rows
+from ..utils.profiling import span
 from .focal import boundary_aware_focal_loss, cross_entropy_loss
 from .pixel_contrast import pixel_contrast_loss
 from .supcon import supcon_loss
@@ -62,7 +63,9 @@ def compute_total_loss(cfg, outputs: Dict[str, torch.Tensor],
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total loss, components) for ``cfg.criterion``. ``generator`` draws
     the pixel-contrast anchors (unused under ``cfg.reference_rng``);
-    ``use_kernel`` forces the contrastive losses' route (None: by size)."""
+    ``use_kernel`` forces the contrastive losses' route (None: by size).
+    Each term is a span: ``dcss.loss.supcon`` (SupCon or SimCLR),
+    ``dcss.loss.pixel`` and ``dcss.loss.seg`` (the focal loss or the CE)."""
     crit = cfg.criterion
     zero = torch.zeros((), dtype=torch.float32, device=outputs["seg"].device)
     comps = {"seg_loss": zero, "supcon_loss": zero, "simclr_loss": zero,
@@ -70,20 +73,24 @@ def compute_total_loss(cfg, outputs: Dict[str, torch.Tensor],
     bsz = global_rows(batch["label"].shape[0])
 
     def supcon(labels):
-        return supcon_loss(outputs["supcon_proj"], labels, use_kernel=use_kernel)
+        with span("dcss.loss.supcon"):
+            return supcon_loss(outputs["supcon_proj"], labels, use_kernel=use_kernel)
 
     def pixel():
-        return pixel_contrast_loss(
-            outputs["fine_feat0"], batch["label"], outputs["seg_beforeup"], generator,
-            num_classes=cfg.num_classes, deterministic_select=cfg.reference_rng,
-            use_kernel=use_kernel)
+        with span("dcss.loss.pixel"):
+            return pixel_contrast_loss(
+                outputs["fine_feat0"], batch["label"], outputs["seg_beforeup"], generator,
+                num_classes=cfg.num_classes, deterministic_select=cfg.reference_rng,
+                use_kernel=use_kernel)
 
     def seg():
-        return _seg_loss(cfg, outputs, batch, class_weight)
+        with span("dcss.loss.seg"):
+            return _seg_loss(cfg, outputs, batch, class_weight)
 
     def ce():
-        return cross_entropy_loss(outputs["seg"], batch["label"],
-                                  ignore_id=cfg.ignore_index)
+        with span("dcss.loss.seg"):
+            return cross_entropy_loss(outputs["seg"], batch["label"],
+                                      ignore_id=cfg.ignore_index)
 
     if crit == "supcon_focal":
         comps["supcon_loss"], comps["seg_loss"] = supcon(batch["weather"]), seg()

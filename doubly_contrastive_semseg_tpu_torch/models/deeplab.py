@@ -30,6 +30,7 @@ import torch.nn as nn
 
 from ..ops.input_pipeline import image_hw, normalize
 from ..ops.interpolate import resize_bilinear
+from ..utils.profiling import span
 from .backbones.hrnetv2 import HRNetV2
 from .backbones.mobilenetv2 import MobileNetV2
 from .backbones.resnet import resnet50, resnet101
@@ -159,22 +160,28 @@ class DeepLabDCSS(nn.Module):
     def forward(self, image: torch.Tensor,
                 return_supcon_feature: bool = False) -> Dict[str, torch.Tensor]:
         size = image_hw(image)
-        features = self.backbone(normalize(image).to(self.dtype).permute(0, 3, 1, 2))
+        with span("dcss.input"):
+            x = normalize(image).to(self.dtype).permute(0, 3, 1, 2)
+        with span("dcss.trunk"):
+            features = self.backbone(x)
+        del x   # the input is not held through the heads
         fine_feat = features["out"]
         if return_supcon_feature:
             bsz = fine_feat.shape[0] // 2
             features = {k: v[:bsz] for k, v in features.items()}
-        seg_beforeup = nhwc(self.classifier(features)).float()
-        out = {
-            "seg": resize_bilinear(seg_beforeup, size),
-            "seg_beforeup": seg_beforeup,
-            "fine_feat": nhwc(fine_feat),
-            "fine_feat0": resize_bilinear(nhwc(features["out"]),
-                                          tuple(seg_beforeup.shape[1:3])),
-        }
-        out["weather_logits"] = self.weather_clf(out["fine_feat0"])
-        if return_supcon_feature:
-            out["supcon_proj"] = self.projection(two_view_pool(out["fine_feat"]))
+        with span("dcss.decoder"):
+            seg_beforeup = nhwc(self.classifier(features)).float()
+        with span("dcss.head"):
+            out = {
+                "seg": resize_bilinear(seg_beforeup, size),
+                "seg_beforeup": seg_beforeup,
+                "fine_feat": nhwc(fine_feat),
+                "fine_feat0": resize_bilinear(nhwc(features["out"]),
+                                              tuple(seg_beforeup.shape[1:3])),
+            }
+            out["weather_logits"] = self.weather_clf(out["fine_feat0"])
+            if return_supcon_feature:
+                out["supcon_proj"] = self.projection(two_view_pool(out["fine_feat"]))
         return out
 
 

@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.input_pipeline import build_pyramid, build_pyramid_cols
 from ..ops.stem import fused_stem_pool, fused_stem_pool_cols
+from ..utils.profiling import span
 from .blocks import Conv2d, UpsampleBlend, batch_norm, conv_cols, conv_kxk, max_pool_3x3_s2
 
 NUM_FEATURES = 128   # decoder width
@@ -129,14 +130,18 @@ class PyramidResNet(nn.Module):
         return max_pool_3x3_s2(torch.relu(bn(x)))
 
     def forward(self, image: torch.Tensor):
-        pyramid = build_pyramid(image, PYRAMID_LEVELS, self.dtype)
+        with span("dcss.input"):
+            pyramid = build_pyramid(image, PYRAMID_LEVELS, self.dtype)
         skips = pyramid_skips()
         for idx, level in enumerate(pyramid):
-            x = self._stem(level, idx)
-            for j in range(4):
-                x = self._stage(j, x, idx)
-                skips[idx + j].append(getattr(self, f"upsample_bottlenecks{j + 1}")(x))
-        return pyramid_decode(self, skips)
+            with span("dcss.stem"):
+                x = self._stem(level, idx)
+            with span("dcss.trunk"):
+                for j in range(4):
+                    x = self._stage(j, x, idx)
+                    skips[idx + j].append(getattr(self, f"upsample_bottlenecks{j + 1}")(x))
+        with span("dcss.decoder"):
+            return pyramid_decode(self, skips)
 
     def check_split(self) -> None:
         """Raises for what the width-split forward does not run: training
@@ -163,18 +168,22 @@ class PyramidResNet(nn.Module):
         widths give equal ranges."""
         self.check_split()
         skips = pyramid_skips()
-        for idx, (level, w) in enumerate(build_pyramid_cols(image, width, PYRAMID_LEVELS,
-                                                            self.dtype)):
-            scale, shift = getattr(self, f"bn1_{idx}").folded()
-            x, w = fused_stem_pool_cols(level, w, self.conv1.weight, scale, shift,
-                                        plain=not self.fuse_stem)
-            x = x.permute(0, 3, 1, 2)
-            for j in range(4):
-                for block in getattr(self, f"layer{j + 1}"):
-                    x, w = block.forward_cols(x, w)
-                skips[idx + j].append(conv_cols(getattr(self, f"upsample_bottlenecks{j + 1}"),
-                                                x, w))
-        return pyramid_decode_cols(self, skips)
+        with span("dcss.input"):
+            pyramid = build_pyramid_cols(image, width, PYRAMID_LEVELS, self.dtype)
+        for idx, (level, w) in enumerate(pyramid):
+            with span("dcss.stem"):
+                scale, shift = getattr(self, f"bn1_{idx}").folded()
+                x, w = fused_stem_pool_cols(level, w, self.conv1.weight, scale, shift,
+                                            plain=not self.fuse_stem)
+                x = x.permute(0, 3, 1, 2)
+            with span("dcss.trunk"):
+                for j in range(4):
+                    for block in getattr(self, f"layer{j + 1}"):
+                        x, w = block.forward_cols(x, w)
+                    skips[idx + j].append(conv_cols(
+                        getattr(self, f"upsample_bottlenecks{j + 1}"), x, w))
+        with span("dcss.decoder"):
+            return pyramid_decode_cols(self, skips)
 
 
 def add_pyramid_decoder(module: nn.Module, skip_widths: Sequence[int] = ()) -> None:

@@ -25,6 +25,7 @@ from ..ops.input_pipeline import image_hw, upsample4x_argmax
 from ..ops.interpolate import resize_bilinear, resize_bilinear_cols
 from ..ops.seghead import fused_seghead_cols, fused_seghead_upsample_argmax
 from ..parallel.spatial import split_active
+from ..utils.profiling import span
 from .stereo import StereoDCSS
 from .weathernet import DCSSModel, check_device
 
@@ -88,22 +89,27 @@ def make_serving_fn(model: torch.nn.Module, device="cuda",
     if not isinstance(model, DCSSModel):
         @torch.no_grad()
         def serve_generic(image) -> torch.Tensor:
-            out = model(torch.as_tensor(image, device=device))
-            if 4 * out["seg_beforeup"].shape[1] == out["seg"].shape[1]:
-                return upsample4x_argmax(out["seg_beforeup"]).to(torch.int8)
-            return out["seg"].argmax(-1).to(torch.int8)
+            with span("dcss.serve"):
+                out = model(torch.as_tensor(image, device=device))
+                with span("dcss.head"):
+                    if 4 * out["seg_beforeup"].shape[1] == out["seg"].shape[1]:
+                        return upsample4x_argmax(out["seg_beforeup"]).to(torch.int8)
+                    return out["seg"].argmax(-1).to(torch.int8)
 
         return serve_generic
     head = model.net.segmentation
 
     @torch.no_grad()
     def serve(image) -> torch.Tensor:
-        x = torch.as_tensor(image, device=device)
-        if split_active():
-            size, feat, wf, _ = model.net.features_split(x)
-            return _labels_split(head, feat, wf, size, use_fused_head)
-        feat, _ = model.net.feature_extractor(x)   # (B, 128, h, w)
-        return _labels(head, feat, image_hw(x), use_fused_head)
+        with span("dcss.serve"):
+            x = torch.as_tensor(image, device=device)
+            if split_active():
+                size, feat, wf, _ = model.net.features_split(x)
+                with span("dcss.head"):
+                    return _labels_split(head, feat, wf, size, use_fused_head)
+            feat, _ = model.net.feature_extractor(x)   # (B, 128, h, w)
+            with span("dcss.head"):
+                return _labels(head, feat, image_hw(x), use_fused_head)
 
     return serve
 
@@ -122,12 +128,14 @@ def make_stereo_serving_fn(model: StereoDCSS, device="cuda") -> Callable:
 
     @torch.no_grad()
     def serve(left, right):
-        xl = torch.as_tensor(left, device=device)
-        xr = torch.as_tensor(right, device=device)
-        out, left_feat = model.disparity(xl, xr)
-        disp = out["disp"].float()
-        if not model.train_semantic:
-            return disp, None
-        return disp, _labels(model.segmentation, left_feat, image_hw(xl))
+        with span("dcss.serve"):
+            xl = torch.as_tensor(left, device=device)
+            xr = torch.as_tensor(right, device=device)
+            out, left_feat = model.disparity(xl, xr)
+            disp = out["disp"].float()
+            if not model.train_semantic:
+                return disp, None
+            with span("dcss.head"):
+                return disp, _labels(model.segmentation, left_feat, image_hw(xl))
 
     return serve

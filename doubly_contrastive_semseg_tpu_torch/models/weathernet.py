@@ -16,6 +16,7 @@ import torch.nn as nn
 from ..ops.input_pipeline import image_hw
 from ..ops.interpolate import resize_bilinear, resize_bilinear_cols
 from ..parallel.spatial import global_width, spatial_mean, split_active
+from ..utils.profiling import span
 from .blocks import BNReluConv, init_weights
 from .efficientnet_pyramid import PyramidEfficientNet
 from .mobilenetv2_pyramid import PyramidMobileNetV2
@@ -125,15 +126,16 @@ class WeatherNet(nn.Module):
             feat, additional = self.feature_extractor(image, depth)
         else:
             feat, additional = self.feature_extractor(image)
-        feat0 = feat[:feat.shape[0] // 2] if return_supcon_feature else feat
-        seg_beforeup = self.segmentation.nhwc_logits(feat0)
-        return {
-            "seg": resize_bilinear(seg_beforeup, image_hw(image)),
-            "seg_beforeup": seg_beforeup,
-            "fine_feat": nhwc(feat),
-            "fine_feat0": nhwc(feat0),
-            "skips_0": nhwc(additional["skips_0"]),
-        }
+        with span("dcss.head"):
+            feat0 = feat[:feat.shape[0] // 2] if return_supcon_feature else feat
+            seg_beforeup = self.segmentation.nhwc_logits(feat0)
+            return {
+                "seg": resize_bilinear(seg_beforeup, image_hw(image)),
+                "seg_beforeup": seg_beforeup,
+                "fine_feat": nhwc(feat),
+                "fine_feat0": nhwc(feat0),
+                "skips_0": nhwc(additional["skips_0"]),
+            }
 
     def features_split(self, image: torch.Tensor):
         """The backbone on a width-split image: ((H, W) of the whole image,
@@ -158,15 +160,17 @@ class WeatherNet(nn.Module):
         rank's columns of it, ``seg`` of the whole image's size; the
         feature map's width). Raises as ``features_split`` does."""
         size, feat, wf, additional = self.features_split(image)
-        feat0 = feat[:feat.shape[0] // 2] if return_supcon_feature else feat
-        seg_beforeup = self.segmentation.forward_cols(feat0, wf)[0].permute(0, 2, 3, 1).float()
-        return {
-            "seg": resize_bilinear_cols(seg_beforeup, wf, size),
-            "seg_beforeup": seg_beforeup,
-            "fine_feat": nhwc(feat),
-            "fine_feat0": nhwc(feat0),
-            "skips_0": nhwc(additional["skips_0"]),
-        }, wf
+        with span("dcss.head"):
+            feat0 = feat[:feat.shape[0] // 2] if return_supcon_feature else feat
+            seg_beforeup = self.segmentation.forward_cols(feat0, wf)[0].permute(0, 2, 3, 1)
+            seg_beforeup = seg_beforeup.float()
+            return {
+                "seg": resize_bilinear_cols(seg_beforeup, wf, size),
+                "seg_beforeup": seg_beforeup,
+                "fine_feat": nhwc(feat),
+                "fine_feat0": nhwc(feat0),
+                "skips_0": nhwc(additional["skips_0"]),
+            }, wf
 
 
 class DCSSModel(nn.Module):
@@ -198,9 +202,10 @@ class DCSSModel(nn.Module):
         if split_active():
             return self.forward_split(image, return_supcon_feature)
         out = self.net(image, return_supcon_feature, depth)
-        out["weather_logits"] = self.weather_clf(out["fine_feat0"])
-        if return_supcon_feature:
-            out["supcon_proj"] = self.projection(two_view_pool(out["fine_feat"]))
+        with span("dcss.head"):
+            out["weather_logits"] = self.weather_clf(out["fine_feat0"])
+            if return_supcon_feature:
+                out["supcon_proj"] = self.projection(two_view_pool(out["fine_feat"]))
         return out
 
     def forward_split(self, image: torch.Tensor,
@@ -211,9 +216,12 @@ class DCSSModel(nn.Module):
         it. ``forward`` takes this route on a model axis of more than one
         rank."""
         out, wf = self.net.forward_split(image, return_supcon_feature)
-        out["weather_logits"] = self.weather_clf.classify(spatial_mean(out["fine_feat0"], wf))
-        if return_supcon_feature:
-            out["supcon_proj"] = self.projection(two_views(spatial_mean(out["fine_feat"], wf)))
+        with span("dcss.head"):
+            out["weather_logits"] = self.weather_clf.classify(
+                spatial_mean(out["fine_feat0"], wf))
+            if return_supcon_feature:
+                out["supcon_proj"] = self.projection(
+                    two_views(spatial_mean(out["fine_feat"], wf)))
         return out
 
 

@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
+from ..utils.profiling import span
 from .mesh import active, global_rows, row_index, world
 
 
@@ -99,12 +100,13 @@ def all_reduce_grads(module: nn.Module) -> None:
     grads = [p.grad for p in module.parameters() if p.grad is not None]
     if not grads:
         return
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
-    o = 0
-    for g in grads:
-        g.copy_(flat[o:o + g.numel()].view(g.shape))
-        o += g.numel()
+    with span("dcss.allreduce"):
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat)
+        o = 0
+        for g in grads:
+            g.copy_(flat[o:o + g.numel()].view(g.shape))
+            o += g.numel()
 
 
 def broadcast_module(module: nn.Module) -> None:

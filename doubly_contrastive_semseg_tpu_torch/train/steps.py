@@ -26,6 +26,7 @@ from ..metrics.confusion import (confusion_matrix, confusion_matrix_per_weather,
                                  weather_confusion_matrix)
 from ..models.blocks import set_dropout_generator
 from ..parallel import all_reduce_grads, local_share, world
+from ..utils.profiling import span
 from .optimizer import set_lr
 from .state import TrainState
 
@@ -74,13 +75,30 @@ def compute_loss(model, cfg, batch: Dict, generator: Optional[torch.Generator],
     dropout masks of the forward (ASPP's, ENet's; JAX's ``rng_drop``) and
     the pixel-contrast anchors; the trainer keys it by the update count.
     ``use_kernel`` forces the contrastive losses' route (None: by size, as
-    in JAX)."""
-    batch = ingest_batch(batch)
-    set_dropout_generator(model, generator)
-    outputs = model(batch["left"], return_supcon_feature=cfg.use_supcon)
-    total, comps = compute_total_loss(cfg, outputs, batch, batch["class_weight"],
-                                      generator, use_kernel=use_kernel)
+    in JAX). The ``dcss.forward`` and ``dcss.loss`` spans."""
+    with span("dcss.forward"):
+        batch = ingest_batch(batch)
+        set_dropout_generator(model, generator)
+        outputs = model(batch["left"], return_supcon_feature=cfg.use_supcon)
+    with span("dcss.loss"):
+        total, comps = compute_total_loss(cfg, outputs, batch, batch["class_weight"],
+                                          generator, use_kernel=use_kernel)
     return total, comps, outputs
+
+
+def _update(optimizer: torch.optim.Optimizer, cfg, state: TrainState, total: torch.Tensor,
+           model) -> None:
+    """A train step after its loss: the ``dcss.backward`` of ``total``, the
+    gradients summed over the ranks (``dcss.allreduce`` where there are
+    several), and the ``dcss.optimizer`` update at the scheduled lr;
+    ``state.step`` += 1."""
+    with span("dcss.backward"):
+        total.backward()
+    all_reduce_grads(model)
+    with span("dcss.optimizer"):
+        set_lr(optimizer, cfg, state.step)
+        optimizer.step()
+    state.step += 1
 
 
 def make_train_step(model, cfg, optimizer: torch.optim.Optimizer) -> Callable:
@@ -99,11 +117,7 @@ def make_train_step(model, cfg, optimizer: torch.optim.Optimizer) -> Callable:
         model.train()
         optimizer.zero_grad(set_to_none=True)
         total, comps, outputs = compute_loss(model, cfg, batch, generator)
-        total.backward()
-        all_reduce_grads(model)
-        set_lr(optimizer, cfg, state.step)
-        optimizer.step()
-        state.step += 1
+        _update(optimizer, cfg, state, total, model)
         metrics = {k: v.detach() for k, v in comps.items()}
         if on_weather:
             with torch.no_grad():
@@ -124,15 +138,17 @@ def stereo_loss(model, cfg, batch: Dict
     ``seg`` against ``label`` with ``train_semantic`` on a batch with
     labels. Returns (total, {"disp_loss", ["seg_loss"], "total_loss"},
     model outputs). ``PSMNetHGAggregation``'s two earlier costs get no
-    loss, as in JAX."""
-    batch = ingest_batch(batch)
-    outputs = model(batch["left"], batch["right"])
-    total = disparity_loss([outputs["disp_pyramid"][0], outputs["disp"]], batch["disp"])
-    comps = {"disp_loss": total}
-    if cfg.train_semantic and "label" in batch:
-        comps["seg_loss"] = cross_entropy_loss(outputs["seg"], batch["label"])
-        total = total + comps["seg_loss"]
-    comps["total_loss"] = total
+    loss, as in JAX. The ``dcss.forward`` and ``dcss.loss`` spans."""
+    with span("dcss.forward"):
+        batch = ingest_batch(batch)
+        outputs = model(batch["left"], batch["right"])
+    with span("dcss.loss"):
+        total = disparity_loss([outputs["disp_pyramid"][0], outputs["disp"]], batch["disp"])
+        comps = {"disp_loss": total}
+        if cfg.train_semantic and "label" in batch:
+            comps["seg_loss"] = cross_entropy_loss(outputs["seg"], batch["label"])
+            total = total + comps["seg_loss"]
+        comps["total_loss"] = total
     return total, comps, outputs
 
 
@@ -148,11 +164,7 @@ def make_stereo_train_step(model, cfg, optimizer: torch.optim.Optimizer) -> Call
         model.train()
         optimizer.zero_grad(set_to_none=True)
         total, comps, _ = stereo_loss(model, cfg, batch)
-        total.backward()
-        all_reduce_grads(model)
-        set_lr(optimizer, cfg, state.step)
-        optimizer.step()
-        state.step += 1
+        _update(optimizer, cfg, state, total, model)
         return {k: v.detach() for k, v in comps.items()}
 
     return train_step

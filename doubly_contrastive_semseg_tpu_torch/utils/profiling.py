@@ -1,54 +1,53 @@
-"""Step timing and device traces — port of the JAX package's
-``utils/profiling.py`` on ``torch.profiler``:
+"""The port's one tracing module, on ``torch.profiler``:
 
-- ``StepTimer``: wall-clock step times, each closed by a synchronise of the
-  card (``fence`` a device or tensor) so the time covers the device work;
+- ``span``: a named region of the program (``dcss.<layer>``) in the
+  profiler's trace, a ``record_function`` while a profiler records and a
+  shared no-op otherwise;
+- ``count``: a number in the same trace, as a zero-length region named
+  ``dcss.count.<name>=<n>``, while a profiler records;
 - ``trace``: a ``torch.profiler`` trace of the CPU and, on the card, CUDA
-  activity, written as a TensorBoard trace under ``log_dir`` (``--trace``);
-- ``annotate``: a named region in that trace (``record_function``).
+  activity, written as a TensorBoard trace under ``log_dir`` (``--trace``).
+
+Spans and counts are the profiler's user annotations, so it writes them on
+the clock of the device activity it records and ties each launch to the
+span it was made in. "On" is a profiler recording: the benchmark's traced
+stretch or the trainers' ``--trace``. Off, a span costs one attribute read.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import Iterator, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+COUNT_PREFIX = "dcss.count."
 
 
-class StepTimer:
-    """Rolling stats of fenced step times."""
+def span(name: str):
+    """``record_function(name)`` while a profiler records (the flag
+    ``torch.profiler.profile`` sets while it is open), else a shared no-op
+    context."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _autograd_profiler.record_function(name)
+    return _OFF
 
-    def __init__(self, skip_first: int = 1):
-        self.skip_first = skip_first
-        self.times: list = []
-        self._seen = 0
 
-    @contextlib.contextmanager
-    def measure(self, fence=None) -> Iterator[None]:
-        t0 = time.perf_counter()
-        yield
-        device = getattr(fence, "device", fence)
-        if device is not None and torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
-        dt = time.perf_counter() - t0
-        self._seen += 1
-        if self._seen > self.skip_first:
-            self.times.append(dt)
-
-    @property
-    def mean(self) -> float:
-        return sum(self.times) / len(self.times) if self.times else 0.0
-
-    def report(self, per: int = 1) -> str:
-        return f"{self.mean / per * 1000:.2f} ms" if self.times else "n/a"
+def count(name: str, n) -> None:
+    """Writes ``n`` into the trace as ``dcss.count.<name>=<n>`` while a
+    profiler records; nothing otherwise."""
+    if _autograd_profiler._is_profiler_enabled:
+        with _autograd_profiler.record_function(f"{COUNT_PREFIX}{name}={n}"):
+            pass
 
 
 @contextlib.contextmanager
 def trace(log_dir: str, device: Optional[str] = None) -> Iterator[None]:
     """A ``torch.profiler`` trace of the block into ``log_dir`` (open with
-    TensorBoard's profiler plugin or ``chrome://tracing``)."""
+    TensorBoard's profiler plugin or ``chrome://tracing``); it holds the
+    program's ``dcss.*`` spans and counts."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
@@ -56,7 +55,3 @@ def trace(log_dir: str, device: Optional[str] = None) -> Iterator[None]:
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
         yield
-
-
-def annotate(name: str):
-    return torch.profiler.record_function(name)
