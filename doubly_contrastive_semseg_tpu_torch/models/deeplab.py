@@ -7,7 +7,9 @@ size; ``seg_beforeup`` the head's (1/4 for V3+, 1/output_stride for V3);
 ``fine_feat`` the backbone's ``out`` for both views (2048 / 320 / 480 / 720
 channels); ``fine_feat0`` the first view resized (bilinear) to
 ``seg_beforeup``'s size; ``weather_logits``; and ``supcon_proj`` with
-``return_supcon_feature``. ASPP rates [6, 12, 18] at output stride 16,
+``return_supcon_feature``. Serving reads ``seg_beforeup`` alone, and takes
+``DeepLabDCSS.seg_logits``: the same input, trunk and decoder, and none of
+the heads. ASPP rates [6, 12, 18] at output stride 16,
 [12, 24, 36] at 8, and [12, 24, 36] for HRNet at either (``modeling.py:
 20``). ``separable`` turns the heads' 3×3 convs into depthwise-separable
 ones. The pixels are normalised as for SwiftNet, JAX's default
@@ -157,26 +159,39 @@ class DeepLabDCSS(nn.Module):
         self.weather_clf = WeatherClassifier(out_ch, weather_num)
         self.projection = ProjectionHead(out_ch, 128) if projection else None
 
-    def forward(self, image: torch.Tensor,
-                return_supcon_feature: bool = False) -> Dict[str, torch.Tensor]:
-        size = image_hw(image)
+    def _logits(self, image: torch.Tensor, return_supcon_feature: bool = False):
+        """input → trunk → decoder, the body ``forward`` and ``seg_logits``
+        share: (``seg_beforeup`` float32 NHWC, the backbone's NCHW ``out``
+        of every view). The decoder reads the first view alone with
+        ``return_supcon_feature``."""
         with span("dcss.input"):
             x = normalize(image).to(self.dtype).permute(0, 3, 1, 2)
         with span("dcss.trunk"):
             features = self.backbone(x)
-        del x   # the input is not held through the heads
+        del x   # the input is not held through the decoder
         fine_feat = features["out"]
         if return_supcon_feature:
             bsz = fine_feat.shape[0] // 2
             features = {k: v[:bsz] for k, v in features.items()}
         with span("dcss.decoder"):
-            seg_beforeup = nhwc(self.classifier(features)).float()
+            return nhwc(self.classifier(features)).float(), fine_feat
+
+    def seg_logits(self, image: torch.Tensor) -> torch.Tensor:
+        """The (B, h, w, classes) float32 ``seg_beforeup`` of ``forward``,
+        bit for bit, and nothing else: serving's entry. None of the heads
+        runs, and the backbone's features are dropped before it returns."""
+        return self._logits(image)[0]
+
+    def forward(self, image: torch.Tensor,
+                return_supcon_feature: bool = False) -> Dict[str, torch.Tensor]:
+        size = image_hw(image)
+        seg_beforeup, fine_feat = self._logits(image, return_supcon_feature)
         with span("dcss.head"):
             out = {
                 "seg": resize_bilinear(seg_beforeup, size),
                 "seg_beforeup": seg_beforeup,
                 "fine_feat": nhwc(fine_feat),
-                "fine_feat0": resize_bilinear(nhwc(features["out"]),
+                "fine_feat0": resize_bilinear(nhwc(fine_feat[:seg_beforeup.shape[0]]),
                                               tuple(seg_beforeup.shape[1:3])),
             }
             out["weather_logits"] = self.weather_clf(out["fine_feat0"])

@@ -241,10 +241,17 @@ class ENetDCSS(nn.Module):
         self.weather_clf = WeatherClassifier(128, weather_num)
         self.projection = ProjectionHead(128, 128) if projection else None
 
+    def _input(self, image: torch.Tensor) -> torch.Tensor:
+        return to_nhwc(image).to(self.dtype).permute(0, 3, 1, 2)
+
+    def seg_logits(self, image: torch.Tensor) -> torch.Tensor:
+        """Serving's entry: ``forward``'s float32 ``seg_beforeup`` (ENet's
+        full-resolution ``seg``), without the weather head."""
+        return self.net(self._input(image))["seg_beforeup"]
+
     def forward(self, image: torch.Tensor,
                 return_supcon_feature: bool = False) -> Dict[str, torch.Tensor]:
-        x = to_nhwc(image).to(self.dtype).permute(0, 3, 1, 2)
-        out = self.net(x, return_supcon_feature)
+        out = self.net(self._input(image), return_supcon_feature)
         out["weather_logits"] = self.weather_clf(out["fine_feat0"])
         if return_supcon_feature:
             out["supcon_proj"] = self.projection(two_view_pool(out["fine_feat"]))

@@ -8,7 +8,11 @@ the CPU its plain version (seg head, then ``upsample4x_argmax``), and the
 model's seg logits are never computed. Other sizes, and every other model
 (DeepLab, ENet: JAX's generic branch, ``serving.py:22-52``), take JAX's
 other branches: the ×4 upsample-argmax of ``seg_beforeup`` when 4× its
-height is the image's, else the argmax of the full-resolution ``seg``.
+height is the image's, else the argmax of its bilinear resize to the image
+(the model's ``seg``). Such a model is served through its logits-only
+forward, ``seg_logits`` (``seg_beforeup``), so the heads the labels do not
+read (DeepLab's ``seg``, ``fine_feat0``, the weather and projection heads;
+ENet's weather head) never run.
 
 ``make_stereo_serving_fn`` serves ``StereoDCSS`` (JAX ``serving.py:55-91``):
 disparity and, with ``train_semantic``, the label map of the left view from
@@ -90,11 +94,13 @@ def make_serving_fn(model: torch.nn.Module, device="cuda",
         @torch.no_grad()
         def serve_generic(image) -> torch.Tensor:
             with span("dcss.serve"):
-                out = model(torch.as_tensor(image, device=device))
+                x = torch.as_tensor(image, device=device)
+                size = image_hw(x)
+                seg_beforeup = model.seg_logits(x)
                 with span("dcss.head"):
-                    if 4 * out["seg_beforeup"].shape[1] == out["seg"].shape[1]:
-                        return upsample4x_argmax(out["seg_beforeup"]).to(torch.int8)
-                    return out["seg"].argmax(-1).to(torch.int8)
+                    if 4 * seg_beforeup.shape[1] == size[0]:
+                        return upsample4x_argmax(seg_beforeup).to(torch.int8)
+                    return resize_bilinear(seg_beforeup, size).argmax(-1).to(torch.int8)
 
         return serve_generic
     head = model.net.segmentation

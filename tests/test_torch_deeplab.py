@@ -62,8 +62,9 @@ from doubly_contrastive_semseg_tpu.utils.torch_convert import (  # noqa: E402
     convert_reference_deeplab, jax_to_py)
 from doubly_contrastive_semseg_tpu_torch import Config, build_model, make_serving_fn  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.config import MODELS  # noqa: E402
-from doubly_contrastive_semseg_tpu_torch.models import deeplab  # noqa: E402
+from doubly_contrastive_semseg_tpu_torch.models import deeplab, serving  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.ops import blend, seghead, stem  # noqa: E402
+from doubly_contrastive_semseg_tpu_torch.ops.input_pipeline import upsample4x_argmax  # noqa: E402
 from doubly_contrastive_semseg_tpu_torch.utils import convert, from_jax_variables  # noqa: E402
 
 S, B, C = 64, 2, 19
@@ -353,6 +354,9 @@ def test_resnet_forward_matches_jax(rng, arch, backbone, output_stride, separabl
 
 # ---- serving, routes -----------------------------------------------------------
 
+OUT_CHANNELS = deeplab.BACKBONE_CHANNELS["resnet50"][0]   # the backbone's ``out``
+
+
 @pytest.mark.parametrize("name", ["deeplabv3plus_resnet50", "deeplabv3_resnet50"])
 def test_generic_serving_matches_jax(rng, name):
     """JAX ``make_serving_fn``'s generic branch at f32: V3+ (``seg_beforeup``
@@ -374,6 +378,69 @@ def test_generic_serving_matches_jax(rng, name):
     np.testing.assert_array_equal(got.numpy(), want)
     assert (seghead.fused_seghead_upsample_argmax.launches, stem.fused_stem_pool.launches,
             blend.fused_upsample_blend.launches) == before
+
+
+@pytest.mark.parametrize("name", ["deeplabv3plus_resnet50", "deeplabv3_resnet50"])
+def test_generic_serving_skips_the_unread_heads(rng, monkeypatch, name):
+    """A DeepLab model is served through its logits-only forward: the
+    weather head never runs, no resize reads the backbone's 2048 channels
+    (``fine_feat0``), and on the ×4 route (V3+) nothing is resized to the
+    image (``seg``). The labels are those of ``forward()``'s logits: the ×4
+    upsample-argmax of ``seg_beforeup`` (V3+), the argmax of ``seg`` (V3)."""
+    cfg = Config(model=name, compute_dtype="float32")
+    model = build_model(cfg, device="cpu")
+    randomize_bn(model, rng)
+    x = torch.from_numpy(rng.uniform(0, 255, (B, S, S, 3)).astype(np.float32))
+    resized, weather, resize = [], [], deeplab.resize_bilinear
+    model.weather_clf.register_forward_hook(lambda *_: weather.append(1))
+
+    def recording(t, size):
+        resized.append((t.shape[-1], tuple(size)))
+        return resize(t, size)
+
+    for module in (deeplab, serving):
+        monkeypatch.setattr(module, "resize_bilinear", recording)
+    got = make_serving_fn(model, device="cpu")(x)
+    assert weather == [] and resized
+    assert all(c != OUT_CHANNELS for c, _ in resized)
+    x4 = name.startswith("deeplabv3plus")
+    assert x4 == all(size != (S, S) for _, size in resized)
+    with torch.no_grad():
+        out = model(x)
+    assert weather == [1]   # the hook sees the full forward's weather head
+    want = (upsample4x_argmax(out["seg_beforeup"]) if x4 else out["seg"].argmax(-1))
+    assert got.dtype == torch.int8
+    assert torch.equal(got, want.to(torch.int8))
+
+
+@pytest.mark.parametrize("name,train", [("deeplabv3plus_resnet50", False),
+                                        ("deeplabv3_resnet50", False),
+                                        ("deeplabv3plus_resnet50", True)])
+def test_seg_logits_is_the_forwards_seg_beforeup(rng, name, train):
+    """``seg_logits`` equals ``forward()["seg_beforeup"]`` bit for bit (in
+    training, under the same dropout draw), and ``forward()`` keeps its
+    keys, shapes and dtypes: in eval, and in training with
+    ``return_supcon_feature`` (two views, the heads on the first)."""
+    cfg = Config(model=name, compute_dtype="float32", criterion=CRITERION)
+    model = build_model(cfg, device="cpu")
+    randomize_bn(model, rng)
+    model.train(train)
+    n = B_TRAIN if train else B
+    x = torch.from_numpy(rng.uniform(0, 255, (2 * n, S, S, 3)).astype(np.float32))
+    with torch.no_grad():
+        torch.manual_seed(1)
+        logits = model.seg_logits(x[:n])
+        torch.manual_seed(1)
+        assert torch.equal(logits, model(x[:n])["seg_beforeup"])
+        out = model(x, return_supcon_feature=True) if train else model(x[:n])
+    h = S // 4 if name.startswith("deeplabv3plus") else S // 16
+    want = {"seg": (n, S, S, C), "seg_beforeup": (n, h, h, C),
+            "fine_feat": (2 * n if train else n, S // 16, S // 16, OUT_CHANNELS),
+            "fine_feat0": (n, h, h, OUT_CHANNELS), "weather_logits": (n, 4)}
+    if train:
+        want["supcon_proj"] = (n, 2, 128)
+    assert {k: tuple(v.shape) for k, v in out.items()} == want
+    assert all(v.dtype == torch.float32 for v in out.values())
 
 
 def test_build_model_routes_every_deeplab_name():

@@ -79,6 +79,23 @@ def test_forward_matches_jax_and_names_round_trip(rng):
     np.testing.assert_array_equal(labels.numpy(), np.argmax(np.asarray(want["seg"]), -1))
 
 
+def test_serving_runs_the_logits_alone(rng):
+    """``seg_logits`` is ``forward()["seg_beforeup"]`` bit for bit, and
+    serving takes it: the weather head never runs."""
+    cfg = Config(model="enet", compute_dtype="float32")
+    model = build_model(cfg, device="cpu")
+    randomize_bn(model, rng)
+    x = torch.from_numpy(rng.uniform(0, 255, (B, S, S, 3)).astype(np.float32))
+    weather = []
+    model.weather_clf.register_forward_hook(lambda *_: weather.append(1))
+    labels = make_serving_fn(model, device="cpu")(x)
+    assert weather == []
+    with torch.no_grad():
+        logits = model.seg_logits(x)
+        assert torch.equal(logits, model(x)["seg_beforeup"])
+    assert torch.equal(labels, logits.argmax(-1).to(torch.int8))
+
+
 def test_train_forward_matches_jax(rng):
     cfg, model, jmodel, x, params, stats = _setup(rng, 4)
     want, mut = jmodel.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),

@@ -24,16 +24,24 @@ B, H, W, C = 2, 64, 128, 19
 CRITERION = "supcon_pixelcontrast_focal"
 
 
-def _spans(prof, tmp_path):
-    """The ``dcss.*`` user annotations of the profiler's Chrome trace, as
-    (name, start µs, end µs) in order of start."""
+def _events(prof, tmp_path):
+    """The complete events of the profiler's Chrome trace, as (category,
+    name, start µs, end µs) in order of start."""
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
-    out = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
-           for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
-           and e["name"].startswith("dcss.")]
-    return sorted(out, key=lambda s: (s[1], -s[2]))
+    out = [(e.get("cat"), e["name"], float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+           for e in events if e.get("ph") == "X"]
+    return sorted(out, key=lambda e: (e[2], -e[3]))
+
+
+def _spans(prof, tmp_path, events=None):
+    """The ``dcss.*`` user annotations of the trace, as (name, start µs,
+    end µs) in order of start."""
+    if events is None:
+        events = _events(prof, tmp_path)
+    return [(name, a, b) for cat, name, a, b in events
+            if cat == "user_annotation" and name.startswith("dcss.")]
 
 
 def _inside(inner, outer) -> bool:
@@ -112,9 +120,41 @@ def test_the_generic_serving_branch_spans_its_head(tmp_path, name, layers):
     (outer,) = _named(spans, "dcss.serve")
     heads = _named(spans, "dcss.head")
     assert heads and all(_inside(h, outer) for h in heads)
-    # DeepLab's layers and head span, then the serving argmax's head span
+    # DeepLab's logits-only layers, then the serving argmax's head span;
+    # ENet's logits and then the head span
     assert [s[0] for s in spans if s is not outer and s[0] != "dcss.head"] == layers
     assert all(_inside(s, outer) for s in spans)
+
+
+def test_logits_only_serving_tiles_the_serve(tmp_path):
+    """A DeepLab model served through ``seg_logits``: its input, trunk,
+    decoder and head spans follow one another inside each batch's
+    ``dcss.serve``, and every operation of the serve that does work runs
+    inside one of them. Off, it records nothing."""
+    _, model = _model("deeplabv3plus_mobilenet")
+    serve = make_serving_fn(model, device="cpu")
+    _, prof = _recorded(lambda: [serve(_image(seed)) for seed in (0, 1)])
+    events = _events(prof, tmp_path)
+    spans = _spans(prof, tmp_path, events)
+    ops = [(name, a, b) for cat, name, a, b in events if cat == "cpu_op"]
+    outers = _named(spans, "dcss.serve")
+    layers = ["dcss.input", "dcss.trunk", "dcss.decoder", "dcss.head"]
+    assert len(outers) == 2
+    for outer in outers:
+        inner = [s for s in spans if s is not outer and _inside(s, outer)]
+        tiles = [s for s in inner if s[0] in layers]
+        assert [s[0] for s in tiles] == layers
+        assert all(a[2] <= b[1] for a, b in zip(tiles, tiles[1:]))
+        served = [o for o in ops if _inside(o, outer)]
+        outside = [o[0] for o in served if not any(_inside(o, t) for t in tiles)]
+        # but the image's ``as_tensor``: on its own device, no copy
+        assert len(served) > 1 and outside == ["aten::to"]
+
+    calls = []
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(autograd_profiler, "record_function", lambda name: calls.append(name))
+        serve(_image())
+    assert calls == []
 
 
 def _batch(seed=0, size=H):
